@@ -1,12 +1,12 @@
 """Per-kernel roofline benchmark (BASELINE: "measure vertical-stencil and
 tridiagonal kernels at speed-of-light per chip").
 
-Measures achievable HBM bandwidth with a copy kernel, then times the hot
-kernels standalone on the real chip and reports each one's effective
-bandwidth and fraction of speed-of-light (minimum HBM bytes / achieved
-copy bandwidth). Prints one JSON line per kernel.
+Measures achievable device-memory bandwidth with a copy kernel, then times
+the hot kernels standalone on the GPU and reports each one's effective
+bandwidth and fraction of speed-of-light (minimum bytes / achieved copy
+bandwidth). Prints one JSON line per kernel. Needs a GPU:
 
-Run on the TPU (do not force CPU): python bench_kernels.py
+    python bench_kernels.py
 """
 from __future__ import annotations
 
@@ -21,7 +21,6 @@ ITERS = 300
 
 def timeit(fn, arg, iters=ITERS):
     import jax
-    import jax.numpy as jnp
 
     @jax.jit
     def many(v):
@@ -31,14 +30,11 @@ def timeit(fn, arg, iters=ITERS):
         s, _ = jax.lax.scan(body, v, None, length=iters)
         return s
 
-    r = many(arg)
-    np.asarray(jax.tree.leaves(r)[0][:1, :1] if jax.tree.leaves(r)[0].ndim > 1
-               else jax.tree.leaves(r)[0][:1])
+    jax.block_until_ready(many(arg))
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
-        r = many(arg)
-        np.asarray(jnp.sum(jax.tree.leaves(r)[0]))
+        jax.block_until_ready(many(arg))
         times.append((time.perf_counter() - t0) / iters)
     return float(np.median(times))
 
@@ -58,7 +54,11 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+    from terrarium_tpu.utils.compile_cache import configure_compile_cache
+
+    if jax.devices()[0].platform != "gpu":
+        raise SystemExit("bench_kernels.py needs a GPU")
+    configure_compile_cache()
     from terrarium_tpu.ops.tridiag import tridiag_solve, tridiag_solve_pcr
     from terrarium_tpu.ops.vertical_ops import (cummin_z, cumsum_z, div_faces,
                                                 grad_faces, interp_faces_mid)
@@ -73,10 +73,10 @@ def main():
 
     fsz = 4  # f32
 
-    # 1. achievable HBM bandwidth: out-of-place copy-scale (read + write)
+    # 1. achievable device-memory bandwidth: copy-scale (read + write)
     t = timeit(lambda v: v * 1.0000001 + 1e-12, big)
-    bw_peak = report("hbm_copy_scale", t, 2 * big.size * fsz, None)
-    print(json.dumps({"hbm_peak_GBps": round(bw_peak / 1e9, 1)}))
+    bw_peak = report("copy_scale", t, 2 * big.size * fsz, None)
+    print(json.dumps({"copy_GBps": round(bw_peak / 1e9, 1)}))
 
     # 2. heat-conduction vertical stencil: q = -kappa_f * dT/dz; dU/dt = -div q
     #    minimum traffic: read T, read kappa, write dUdt  (3 arrays)

@@ -1,22 +1,21 @@
-"""Scaling-efficiency benchmark over a device mesh.
+"""Scaling efficiency of the cells-sharded rollout over a device mesh.
 
-BASELINE asks for >= 90% grid-points/s scaling efficiency at 2+ hosts. Real
-multi-chip hardware is not available in this environment, so this harness
-measures the *methodology* on a virtual CPU mesh (``--devices N`` forces
-``xla_force_host_platform_device_count``). NOTE virtual devices share the
-host's physical cores, so CPU weak-scaling efficiency is bounded by total
-host throughput and does NOT reflect TPU ICI scaling — the per-column step
-is collective-free (see tests/test_sharding.py), so on a real pod slice
-(run unchanged, drop ``--cpu``) the only efficiency losses are I/O and
-diagnostics reductions.
+Weak scaling: cells proportional to devices, one ``cell_mesh`` per device
+count, the same rollout (`timesteppers.autodiff.make_rollout_fn`) under
+`shard_state`; then the SPMD partitioning overhead at constant compute (the
+same cells sharded over all devices vs unsharded on one).
 
-Prints one JSON line per mesh size and a final efficiency summary.
+    python bench_scaling.py --devices 4          # the GPUs of this host
+    python bench_scaling.py --cpu --devices 8    # virtual CPU devices
+
+With ``--cpu`` the devices are virtual (``xla_force_host_platform_device_count``)
+and share the host's cores, so the efficiency numbers there say nothing about
+GPUs; they check the method. Prints one JSON line per mesh size and a summary.
 """
 from __future__ import annotations
 
 import argparse
 import json
-import sys
 import time
 
 import numpy as np
@@ -25,7 +24,8 @@ import numpy as np
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--devices", type=int, default=8)
-    ap.add_argument("--cpu", action="store_true", default=True)
+    ap.add_argument("--cpu", action="store_true",
+                    help="virtual CPU devices instead of the host's GPUs")
     ap.add_argument("--cells-per-device", type=int, default=8192)
     ap.add_argument("--nz", type=int, default=30)
     ap.add_argument("--steps", type=int, default=30)
@@ -41,7 +41,12 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    elif jax.devices()[0].platform != "gpu":
+        raise SystemExit("bench_scaling.py needs GPUs (or --cpu)")
 
+    from terrarium_tpu.utils.compile_cache import configure_compile_cache
+
+    configure_compile_cache()
     import terrarium_tpu as tt
     from terrarium_tpu.parallel.sharding import cell_mesh, shard_state
     from terrarium_tpu.timesteppers.autodiff import make_rollout_fn
@@ -75,14 +80,11 @@ def main():
         state = shard_state(sim.state, mesh)
         roll = jax.jit(make_rollout_fn(sim.model, sim.timestepper, sim.ctx,
                                        sim.input_sources, steps=args.steps))
-        # warmup/compile
-        state = roll(state, 60.0)
-        float(np.asarray(jax.numpy.sum(state.prognostic["internal_energy"])))
+        state = jax.block_until_ready(roll(state, 60.0))  # compile + warm
         times = []
         for _ in range(3):
             t0 = time.perf_counter()
-            state = roll(state, 60.0)
-            float(np.asarray(jax.numpy.sum(state.prognostic["internal_energy"])))
+            state = jax.block_until_ready(roll(state, 60.0))
             times.append(time.perf_counter() - t0)
         med = float(np.median(times))
         rate = cells * args.steps / med
@@ -96,15 +98,12 @@ def main():
         f"{n}dev_efficiency": round(rate / (base * n / min(results)), 3)
         for n, rate in results.items()}
     print(json.dumps({"metric": "weak_scaling_efficiency",
-                      "note": "virtual devices share host cores; see "
-                              "sharding_overhead below for the meaningful "
-                              "virtual-mesh number", **summary}))
+                      "platform": all_devices[0].platform,
+                      "device_kind": all_devices[0].device_kind,
+                      **summary}))
 
-    # The measurable virtual-mesh quantity: SPMD partitioning overhead at
-    # constant compute resources — same total cells, sharded over the full
-    # mesh vs unsharded on one device (same host cores either way). On a
-    # real pod slice each device is physical and the collective-free step
-    # makes weak scaling track this number instead.
+    # SPMD partitioning overhead at constant compute: the same total cells,
+    # sharded over the full mesh vs unsharded on one device
     import os
 
     cells = args.cells_per_device * args.devices
@@ -113,14 +112,11 @@ def main():
                                    sim.input_sources, steps=args.steps))
 
     def timed(state):
-        state = roll(state, 60.0)
-        float(np.asarray(jax.numpy.sum(state.prognostic["internal_energy"])))
+        state = jax.block_until_ready(roll(state, 60.0))
         times = []
         for _ in range(3):
             t0 = time.perf_counter()
-            state = roll(state, 60.0)
-            float(np.asarray(jax.numpy.sum(
-                state.prognostic["internal_energy"])))
+            state = jax.block_until_ready(roll(state, 60.0))
             times.append(time.perf_counter() - t0)
         return float(np.median(times))
 
@@ -133,44 +129,6 @@ def main():
         "t_unsharded_s": round(t_unsharded, 4),
         "t_sharded_s": round(t_sharded, 4),
         "sharded_over_unsharded": round(t_sharded / t_unsharded, 3)}))
-
-    # the fused PRODUCTION path under the mesh (round 4): the same
-    # constant-compute comparison through `make_sharded_fused_rollout`
-    # (shard_map; interpret-mode kernels on CPU) vs the unsharded fused
-    # rollout — the number a real pod's weak scaling tracks for the
-    # fused path (collective-free by construction, test_sharding.py)
-    from terrarium_tpu.ops.fused_step import make_fused_lean_rollout
-    from terrarium_tpu.parallel.sharding import make_sharded_fused_rollout
-
-    inner = args.steps
-    fused1 = make_fused_lean_rollout(
-        sim.model, sim.timestepper, sim.ctx, sim.input_sources,
-        dt=60.0, inner_steps=inner, block_cells=512)
-    fusedN = make_sharded_fused_rollout(
-        sim.model, sim.timestepper, sim.ctx, sim.input_sources,
-        mesh=cell_mesh(all_devices), dt=60.0, inner_steps=inner,
-        block_cells=512)
-
-    def timed_fused(fn, state):
-        r = jax.jit(lambda s: fn(s, args.steps, ()))
-        state = r(state)
-        float(np.asarray(jax.numpy.sum(state.prognostic["internal_energy"])))
-        times = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            state = r(state)
-            float(np.asarray(jax.numpy.sum(
-                state.prognostic["internal_energy"])))
-            times.append(time.perf_counter() - t0)
-        return float(np.median(times))
-
-    tf1 = timed_fused(fused1, sim.state)
-    tfN = timed_fused(fusedN, shard_state(sim.state, cell_mesh(all_devices)))
-    print(json.dumps({
-        "metric": "fused_shardmap_overhead_constant_compute",
-        "cells": cells, "devices": args.devices,
-        "t_unsharded_s": round(tf1, 4), "t_sharded_s": round(tfN, 4),
-        "sharded_over_unsharded": round(tfN / tf1, 3)}))
 
 
 if __name__ == "__main__":

@@ -1,37 +1,44 @@
-"""The 1-simulated-year protocol (BASELINE parity target; r5 items 4/8/9).
+"""The 1-simulated-year protocol (BASELINE parity target).
 
-Reproduces the reference benchmark/parity protocol on the real chip:
-SoilModel heat + RichardsEq, N145 ERA5-land masked Gaussian grid, Nz=30
+Reproduces the reference benchmark/parity protocol on the GPU: SoilModel
+heat + RichardsEq, N145 ERA5-land masked Gaussian grid, Nz=30
 ExponentialSpacing, Float32, dt=60 s, annual-cycle surface temperature BC
-``T_ub(t) = 30 sin(2 pi t / (365*24*3600))``
-(`/root/reference/test/benchmarks/gpu/soil_heat_hydrology_global.jl:39-58`),
-run for 525,600 steps = 1 simulated year. Sections:
+``T_ub(t) = 30 sin(2 pi t / (365*24*3600))`` (reference
+`test/benchmarks/gpu/soil_heat_hydrology_global.jl:39-58`), run for 525,600
+steps = 1 simulated year through `Simulation.run` (the XLA lean scan).
+Sections:
 
-1. soil year on the fused Pallas path — throughput, per-chunk records,
-   end-state golden + checksums (`tests/goldens/year_n145_endstate.npz`);
+1. soil year — per-chunk records, end-state golden + checksums
+   (`tests/goldens/year_n145_endstate.npz`);
 2. EXACT water/energy budget years (`diagnostics/budget.ExactBudget`:
    per-step in-rollout rate accumulation, sampling-independent) — parity
    mode (residual quantifies the saturation-clamp creation) AND the
    ``deficit_pool`` corrected mode (must close to <=1e-3 of inventory);
-3. coupled LandModel year on the FUSED kernel path (xy_rank2 auto) with
-   golden + checksums, plus a 30-day exact-budget closure assessment of
-   the ``consistent()`` composition.
+3. coupled LandModel year with golden + checksums, plus a 30-day
+   exact-budget closure assessment of the ``consistent()`` composition.
 
-Emits ``YEAR_r05.json``. Run: python experiments/run_year.py [--quick]
-(--quick = 2 simulated days for harness validation; does not overwrite the
-year artifacts)
+Writes the physics record ``tests/goldens/year_protocol.json`` (no timings;
+`tests/test_year_artifact.py` locks it) and the two end-state goldens;
+timings are printed only. Needs the ERA5-land N145 mask file:
+
+    python experiments/run_year.py --mask era5-land_land_sea_mask_N145.nc [--quick]
+
+(``--quick`` = 2 simulated days for harness validation; writes nothing.)
 """
 from __future__ import annotations
 
+import argparse
 import hashlib
 import json
-import os
+import pathlib
 import sys
 import time
 
 import numpy as np
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+GOLDENS = ROOT / "tests" / "goldens"
+sys.path.insert(0, str(ROOT))
 
 YEAR_STEPS = 365 * 24 * 60  # dt=60 -> 525,600
 DT = 60.0
@@ -44,7 +51,7 @@ def _sha(arr):
     return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()[:16]
 
 
-def build_sim(tt, np_, deficit_pool=False):
+def build_sim(tt, mask, deficit_pool=False):
     """EXACTLY the parity-harness protocol configuration — single source of
     truth, so the year artifact and `parity_vs_reference.py` compare the
     same model (reference `soil_heat_hydrology_global.jl:39-58`: default
@@ -53,24 +60,21 @@ def build_sim(tt, np_, deficit_pool=False):
     the exact-budget assessment; the parity/golden runs keep it off."""
     from parity_vs_reference import build_sim as parity_build
 
-    sim, _ = parity_build(
-        "/root/reference/inputs/era5-land_land_sea_mask_N145.nc", dt=DT,
-        deficit_pool=deficit_pool)
+    sim, _ = parity_build(mask, dt=DT, deficit_pool=deficit_pool)
     return sim
 
 
-def build_coupled_sim(tt, np_):
+def build_coupled_sim(tt, mask_path):
     """Reduced-dt coupled LandModel year: bare-ground surface schemes over
     the same N145 mask, daily-resolution annual forcing cycle (lat-dependent
     air temperature + shortwave) as a (366, cells) TimeSeriesInputSource
-    (~70 MB device-resident — hourly would not fit HBM; the forcing pipeline
-    covers that regime, io/forcing_pipeline.py)."""
-    mask, _, _ = tt.load_land_mask(
-        "/root/reference/inputs/era5-land_land_sea_mask_N145.nc")
+    (~70 MB device-resident; the forcing pipeline covers the hourly
+    regime, io/forcing_pipeline.py)."""
+    mask, _, _ = tt.load_land_mask(mask_path)
     ring = tt.full_gaussian_grid(145)
     grid = tt.ColumnRingGrid.create(ring, mask,
                                     spacing=tt.ExponentialSpacing(N=20),
-                                    nf=np_.float32, pad_multiple=8)
+                                    nf=np.float32, pad_multiple=8)
     soil = tt.SoilEnergyWaterCarbon(
         strat=tt.HomogeneousStratigraphy(
             texture=tt.SoilTexture.preset("loam")),
@@ -113,25 +117,15 @@ def build_coupled_sim(tt, np_):
         input_sources=(forcing, static))
 
 
-def run(quick=False):
+def run(mask, quick=False):
     import jax
 
-    if os.environ.get("YEAR_FORCE_CPU"):  # harness validation off-chip
-        jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 10.0)
+    from terrarium_tpu.utils.compile_cache import configure_compile_cache
 
+    configure_compile_cache()
     import terrarium_tpu as tt
 
-    cpu = jax.devices("cpu")[0]
-    dev = jax.devices()[0]
-    with jax.default_device(cpu):
-        sim = build_sim(tt, np)
-    sim.state = jax.device_put(sim.state, dev)
-    if not os.environ.get("YEAR_FORCE_CPU"):
-        # interpret-mode Pallas at N145 scale is pathological on CPU; the
-        # fused path is chip-only (the XLA lean scan validates off-chip)
-        sim.fused_inner_steps, sim.fused_block_cells = 144, 512
+    sim = build_sim(tt, mask)
 
     steps = 2 * 1440 if quick else YEAR_STEPS
     chunk = 1440 if quick else CHUNK
@@ -160,10 +154,8 @@ def run(quick=False):
             break
     wall_total = time.perf_counter() - t_start
 
-    # uninstrumented throughput: the daily budget callbacks cost ~0.9 s of
-    # host round-trip each (0.14 s of chip compute per simulated day), so
-    # the instrumented wall time is NOT the production speed — measure the
-    # compiled rollout back-to-back without callbacks
+    # uninstrumented throughput: the per-chunk host reads are not the
+    # production speed — time the compiled rollout back-to-back
     roll = sim._rollout_fn(chunk)
     s = sim.state
     times = []
@@ -186,17 +178,16 @@ def run(quick=False):
                     "1 simulated year, N145 ERA5-land mask, Nz=30, f32, dt=60",
         "steps": steps, "dt": DT, "cells": cells,
         "land_cells": int(sim.model.grid.n_land),
-        "wall_s": round(wall_total, 1),
-        "sypd_instrumented": round(sypd, 2),
-        "sypd": round(sypd_clean, 2),
-        "cells_steps_per_s_M": round(thr / 1e6, 1),
         "finite": all(r["finite"] for r in records),
         "end_T_range": [records[-1]["T_min"], records[-1]["T_max"]],
         "end_sat_range": [records[-1]["sat_min"], records[-1]["sat_max"]],
         "checksums": {"internal_energy": _sha(U),
                       "saturation_water_ice": _sha(sat)},
-        "chunks": records[-3:],
     }
+    print(json.dumps({"device": jax.devices()[0].device_kind,
+                      "wall_s": wall_total, "sypd_instrumented": sypd,
+                      "sypd": sypd_clean, "cells_steps_per_s": thr}),
+          flush=True)
 
     # --- EXACT budget years (r5 items 8+9): per-step in-rollout rate
     # accumulation -> the closure number is sampling-independent by
@@ -207,15 +198,13 @@ def run(quick=False):
     bchunk = 1440 if quick else YEAR_STEPS // 10
     out["exact_budget"] = {}
     for mode in ("parity", "deficit_pool"):
-        with jax.default_device(cpu):
-            bsim = build_sim(tt, np, deficit_pool=(mode == "deficit_pool"))
-        bsim.state = jax.device_put(bsim.state, dev)
+        bsim = build_sim(tt, mask, deficit_pool=(mode == "deficit_pool"))
         eb = tt.ExactBudget.start(bsim)
         t0 = time.perf_counter()
         eb.run(bsim, steps=bsteps, dt=DT, chunk=bchunk)
         rep = eb.report(bsim)
+        print(json.dumps({mode: {"wall_s": time.perf_counter() - t0}}))
         rec = {
-            "wall_s": round(time.perf_counter() - t0, 1),
             "water": {k: float(v) for k, v in rep["water"].items()},
             "energy": {k: float(v) for k, v in rep["energy"].items()},
         }
@@ -229,15 +218,8 @@ def run(quick=False):
                 ["inventory_relative_residual"] < 1e-3), \
             "corrected year failed to close water"
 
-    # --- reduced-dt coupled LandModel year on the FUSED kernel path
-    # (fused_xy_rank2 auto-on for LandModel — the round-4 fix for the
-    # Mosaic layout.h crash; block 640 per the coupled sweep) ---
-    with jax.default_device(cpu):
-        csim = build_coupled_sim(tt, np)
-    csim.state = jax.device_put(csim.state, dev)
-    csim.input_sources = jax.device_put(csim.input_sources, dev)
-    if not os.environ.get("YEAR_FORCE_CPU"):
-        csim.fused_inner_steps = 144  # block/xy_rank2 auto -> 640/True
+    # --- reduced-dt coupled LandModel year ---
+    csim = build_coupled_sim(tt, mask)
     csteps = 288 if quick else 365 * 144  # dt=600 -> 52,560 = 1 year
     t0 = time.perf_counter()
     csim.run(steps=csteps, dt=600.0)
@@ -247,10 +229,6 @@ def run(quick=False):
     cskin = np.asarray(csim.state.prognostic["skin_temperature"])
     out["coupled"] = {
         "steps": csteps, "dt": 600.0, "nz": 20,
-        "rollout_path": "pallas_fused_640x144_xyr2",
-        "wall_s": round(cwall, 1),
-        "sypd": round((csteps * 600.0 / (365 * 86400.0))
-                      / (cwall / 86400.0), 2),
         "finite": bool(np.all(np.isfinite(cT)) & np.all(np.isfinite(csat))
                        & np.all(np.isfinite(cskin))),
         "T_range": [float(cT.min()), float(cT.max())],
@@ -264,13 +242,11 @@ def run(quick=False):
             "saturation_water_ice": _sha(csat)},
     }
     assert csat.max() < 1.01, "post-step sat overshoot beyond one-step bound"
-    print(json.dumps(out["coupled"]), flush=True)
+    print(json.dumps({"coupled_wall_s": cwall, **out["coupled"]}),
+          flush=True)
 
     # 30-day exact-budget closure of the consistent() coupled composition
-    with jax.default_device(cpu):
-        c2 = build_coupled_sim(tt, np)
-    c2.state = jax.device_put(c2.state, dev)
-    c2.input_sources = jax.device_put(c2.input_sources, dev)
+    c2 = build_coupled_sim(tt, mask)
     ceb = tt.ExactBudget.start(c2)
     cbs = 144 if quick else 30 * 144
     ceb.run(c2, steps=cbs, dt=600.0, chunk=cbs)
@@ -280,27 +256,29 @@ def run(quick=False):
     print(json.dumps(out["coupled"]["exact_budget_30d"]), flush=True)
 
     if not quick:
-        with open("/root/repo/YEAR_r05.json", "w") as f:
+        with open(GOLDENS / "year_protocol.json", "w") as f:
             json.dump(out, f, indent=1)
         np.savez_compressed(
-            "/root/repo/tests/goldens/year_n145_endstate.npz",
+            GOLDENS / "year_n145_endstate.npz",
             internal_energy=U[:, ::64], saturation_water_ice=sat[:, ::64],
             surface_excess_water=np.asarray(
                 sim.state.prognostic["surface_excess_water"])[::64],
             meta_steps=steps, meta_cells=cells)
         np.savez_compressed(
-            "/root/repo/tests/goldens/year_coupled_endstate.npz",
+            GOLDENS / "year_coupled_endstate.npz",
             internal_energy=np.asarray(
                 csim.state.prognostic["internal_energy"])[:, ::64],
             saturation_water_ice=csat[:, ::64],
             skin_temperature=cskin[::64],
             meta_steps=csteps, meta_cells=csim.model.grid.cells)
-        print("wrote YEAR_r05.json + year goldens (soil + coupled)")
-    print(json.dumps({k: out[k] for k in
-                      ("wall_s", "sypd", "cells_steps_per_s_M", "finite",
-                       "checksums") if k in out}))
+        print("wrote tests/goldens/year_protocol.json + year goldens")
     return out
 
 
 if __name__ == "__main__":
-    run(quick="--quick" in sys.argv)
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--mask", required=True,
+                    help="ERA5-land N145 land-sea mask (netCDF)")
+    ap.add_argument("--quick", action="store_true")
+    args = ap.parse_args()
+    run(args.mask, quick=args.quick)

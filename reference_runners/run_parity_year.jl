@@ -2,7 +2,7 @@
 # "allclose prognostic fields vs reference after 1 simulated year").
 #
 # Runs Terrarium.jl under EXACTLY the year-protocol configuration that
-# `parity_vs_reference.py --year` / `experiments/run_year.py` use on the TPU
+# `parity_vs_reference.py --year` / `experiments/run_year.py` use on the JAX
 # side (mirroring `test/benchmarks/gpu/soil_heat_hydrology_global.jl:39-51`
 # and `examples/simulations/soil_heat_global.jl:29-38`):
 #

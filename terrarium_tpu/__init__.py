@@ -1,15 +1,16 @@
-"""terrarium_tpu — a TPU-native land-surface modeling framework.
+"""terrarium_tpu — a JAX land-surface modeling framework.
 
-A from-scratch JAX/XLA/Pallas implementation with the capabilities of the
+A from-scratch JAX/XLA implementation with the capabilities of the
 reference Julia framework (Terrarium.jl): laterally-independent vertical soil
 columns with two-phase heat conduction, Richards-equation hydrology, surface
 energy balance, surface hydrology, and PALADYN vegetation carbon dynamics,
 over column batches or masked global ring grids.
 
-Design (TPU-first, not a port):
+Design (accelerator-first, not a port):
 
-* fields are ``(Nz, cells)`` arrays — cells on the TPU lane axis, sharded
-  across chips via `jax.sharding`; z stays local to each chip;
+* fields are ``(Nz, cells)`` arrays — cells on the trailing (contiguous)
+  axis, sharded across devices via `jax.sharding`; z stays local to each
+  device;
 * the whole model step is one pure jitted function; rollouts are `lax.scan`s;
 * differentiability via `jax.grad` + `jax.checkpoint` (replacing Enzyme);
 * explicit *and* implicit (batched tridiagonal) timesteppers.
@@ -113,7 +114,6 @@ from .io.forcing_pipeline import ChunkedForcingPipeline
 from .parallel.halo import (lateral_diffusion_forcing,
                             lateral_diffusion_forcing_ring,
                             neighbor_shift)
-from .timesteppers.fused_grad import make_fused_grad_rollout
 from .parallel.sharding import (cell_mesh, initialize_distributed,
                                 shard_sources, shard_state)
 from .diagnostics.budget import BudgetTracker, ExactBudget, energy_column, energy_rates, water_column, water_rates

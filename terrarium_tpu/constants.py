@@ -1,6 +1,6 @@
 """Physical constants.
 
-TPU-native equivalent of the reference `src/processes/physical_constants.jl:9-53`.
+JAX equivalent of the reference `src/processes/physical_constants.jl:9-53`.
 Constants are plain Python floats (weakly typed in JAX), so they adopt the dtype
 of the array operands they combine with — this reproduces the reference's
 "number format everywhere" (NF) policy without explicit casts.

@@ -1,6 +1,6 @@
 """Debugging / NaN-check hooks.
 
-TPU-native equivalent of the reference debug subsystem
+JAX equivalent of the reference debug subsystem
 (`src/diagnostics/debugging.jl`): a global debug flag (environment variable
 ``TERRARIUM_TPU_DEBUG``) that, when enabled, turns on JAX NaN checking
 (`jax_debug_nans` — the analogue of the reference's NaN-check hook after

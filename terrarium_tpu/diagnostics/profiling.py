@@ -2,7 +2,7 @@
 
 The reference has no built-in tracer — perf work uses `@time`/BenchmarkTools
 in example scripts and SnoopCompile for compile latency (SURVEY §5). The
-TPU-native equivalents here:
+JAX equivalents here:
 
 * :func:`trace` — context manager around `jax.profiler` writing a TensorBoard
   trace directory (kernel timeline, HBM usage) for any code region.
@@ -38,9 +38,10 @@ def trace(logdir: str):
 
 
 def _sync(x):
+    """Wait until every array of ``x`` is computed."""
     import jax
 
-    return np.asarray(jax.tree.leaves(x)[0]).ravel()[:1]
+    return jax.block_until_ready(x)
 
 
 def profile_rollout(sim, steps: int, logdir: str, dt: Optional[float] = None

@@ -1,11 +1,11 @@
 """Column grids: batches of laterally-independent soil columns.
 
-TPU-native equivalent of the reference `ColumnGrid`
+JAX equivalent of the reference `ColumnGrid`
 (`src/grids/column_grid.jl:20-38`). A grid is a static (hashable) description
 of shapes + vertical coordinates; fields are materialised as JAX arrays of
 shape ``(Nz, cells)`` (cell-centered), ``(Nz + 1, cells)`` (faces) or
-``(cells,)`` (lateral-only). The ``cells`` axis maps to the TPU lane dimension
-and is the axis sharded across chips (replacing the reference's x-axis work
+``(cells,)`` (lateral-only). The ``cells`` axis is the trailing (contiguous)
+dimension and is the axis sharded across devices (replacing the reference's x-axis work
 domain, `src/grids/grid_utils.jl:2-19`).
 """
 from __future__ import annotations
@@ -85,36 +85,3 @@ class ColumnGrid:
 
     def __repr__(self):
         return f"ColumnGrid(cells={self.cells}, nz={self.nz}, nf={self.nf})"
-
-    def with_traced_coords(self, z_centers, z_faces, dz, dz_faces) -> "ColumnGrid":
-        """A grid whose coordinate properties return the given (traced)
-        arrays instead of materializing numpy constants — required inside
-        Pallas kernels, where constants must be explicit inputs
-        (see `ops/fused_step.py`)."""
-        return _TracedCoordGrid(cells=self.cells, vertical=self.vertical,
-                                nf=self.nf, coords=(z_centers, z_faces, dz,
-                                                    dz_faces))
-
-
-@dataclasses.dataclass(frozen=True, eq=False)
-class _TracedCoordGrid(ColumnGrid):
-    coords: tuple = None
-
-    @property
-    def z_centers(self):
-        return self.coords[0]
-
-    @property
-    def z_faces(self):
-        return self.coords[1]
-
-    @property
-    def dz(self):
-        return self.coords[2]
-
-    @property
-    def dz_faces(self):
-        return self.coords[3]
-
-    def __hash__(self):
-        return hash((self.cells, self.vertical, str(self.nf)))

@@ -1,6 +1,6 @@
 """Global ring grids with land-mask packing.
 
-TPU-native equivalent of the reference `ColumnRingGrid`
+JAX equivalent of the reference `ColumnRingGrid`
 (`src/grids/column_ring_grid.jl`): a global Gaussian (or HEALPix-latitude)
 lat-lon grid plus a Boolean land mask; only the ``Nh = sum(mask)`` land cells
 are simulated, packed densely into the cells axis. ``idx`` maps packed cells
@@ -8,7 +8,7 @@ back to raster positions (the reference's `findall(mask)` idxmap;
 `column_ring_grid.jl:37-59`), and `gather`/`scatter` convert between rasters
 and packed arrays with a fill value (`column_ring_grid.jl:102-149`).
 
-TPU addition: the packed axis is padded to a multiple of ``pad_multiple`` so
+Addition: the packed axis is padded to a multiple of ``pad_multiple`` so
 it divides evenly over a device mesh; padded cells run the same physics on
 dummy data and are excluded from scatter/diagnostics via ``land_mask_packed``.
 """

@@ -1,6 +1,6 @@
 """Vertical discretizations.
 
-TPU-native equivalent of reference `src/grids/vertical_discretization.jl`.
+JAX equivalent of reference `src/grids/vertical_discretization.jl`.
 Each spacing produces a vector of layer thicknesses (top-down order: index 0 is
 the *surface* layer) which the :class:`~terrarium_tpu.grids.vertical.VerticalGrid`
 turns into face/center coordinates.

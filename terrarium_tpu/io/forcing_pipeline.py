@@ -1,7 +1,7 @@
 """Chunked host->device forcing pipeline for long time series.
 
 SURVEY hard part #5: hourly global ERA5 series (years x 8760 x ~57k cells)
-cannot live in HBM. This pipeline keeps the full series on host (numpy or
+cannot live in device memory. This pipeline keeps the full series on host (numpy or
 memmap), streams fixed-size time windows to the device, and runs the
 simulation in window-sized `lax.scan` chunks. The window enters the jitted
 rollout as a *traced argument* (not a baked constant), so every window reuses
@@ -65,8 +65,7 @@ class ChunkedForcingPipeline:
     def update_inputs(self, state):
         raise RuntimeError(
             "ChunkedForcingPipeline streams from host — drive the "
-            "simulation with pipeline.run(sim, ...) or "
-            "pipeline.run_fused(sim, ...), not sim.run()")
+            "simulation with pipeline.run(sim, ...), not sim.run()")
 
     def _window_arrays(self, i0: int, nf):
         i1 = min(i0 + self.window, self.times.shape[0])
@@ -125,106 +124,5 @@ class ChunkedForcingPipeline:
             sim.state = rollout(sim.state, dt, window, int(n))
             done += n
             i0, window = next_i0, next_window
-        sim.compute_auxiliary()
-        return sim
-
-    def run_fused(self, sim, steps: int, dt: float):
-        """Advance ``sim`` by ``steps`` streaming the forcing through the
-        FUSED windowed rollout (`ops/fused_step.make_fused_lean_rollout`).
-
-        The production regime of SURVEY hard-part #5: the full series stays
-        on host (array, memmap, or lazy provider); fixed-size windows enter
-        the jitted rollout as shifted-time-origin arguments, so ONE Mosaic
-        executable serves every equal-size chunk (plus one for the tail).
-        The next window's host->device transfer is issued right after the
-        (asynchronous) chunk dispatch, overlapping device compute.
-
-        Requires uniform time spacing (the fused in-kernel interpolation
-        contract) and ``sim.fused_inner_steps`` set; ``steps`` must be a
-        multiple of it.
-        """
-        import jax
-
-        from ..ops.fused_step import make_fused_lean_rollout
-        from ..models.land_model import LandModel
-
-        d = np.diff(self.times)
-        if not np.allclose(d, d[0], rtol=1e-6):
-            raise ValueError("run_fused requires uniformly spaced times")
-        dts = float(d[0])
-        model, ts_, ctx = sim.model, sim.timestepper, sim.ctx
-        static_sources = tuple(s for s in sim.input_sources
-                               if not hasattr(s, "times"))
-        nf = model.grid.nf
-        inner = int(sim.fused_inner_steps or 0)
-        if inner <= 0:
-            raise ValueError("set sim.fused_inner_steps for run_fused")
-        if steps % inner:
-            raise ValueError(f"steps={steps} not a multiple of "
-                             f"fused_inner_steps={inner}")
-        coupled = isinstance(model, LandModel)
-        block = int(sim.fused_block_cells) if sim.fused_block_cells else (
-            640 if coupled else
-            (256 if model.grid.cells <= 8192 else 512))
-        xy_rank2 = (coupled if sim.fused_xy_rank2 is None
-                    else bool(sim.fused_xy_rank2))
-
-        W = self.window
-        # -2 slices of margin: chunk starts may fall mid-interval and the
-        # in-kernel window needs one slice of lookahead
-        chunk_steps = int(((W - 2) * dts) // dt)
-        chunk_steps -= chunk_steps % inner
-        if chunk_steps <= 0:
-            raise ValueError(f"window={W} covers fewer than "
-                             f"inner_steps={inner} steps at dt={dt}")
-
-        # build-time source: uniform times of length W (shapes only; the
-        # runtime windows override values AND the time origin)
-        def build_series(k, v):
-            probe = np.asarray(self._slice(v, 0, 1))
-            return np.zeros((W,) + probe.shape[1:], nf)
-
-        build_src = TimeSeriesInputSource(
-            times=self.times[0] + np.arange(W) * dts,
-            series={k: build_series(k, v) for k, v in self.series.items()})
-        fused = make_fused_lean_rollout(
-            model, ts_, ctx, (build_src,) + static_sources, dt=dt,
-            inner_steps=inner, block_cells=block, xy_rank2=xy_rank2)
-
-        rollers = {}
-
-        def roll(state, src, n):
-            if n not in rollers:
-                rollers[n] = jax.jit(
-                    lambda s, sr, _n=int(n): fused(s, _n, (sr,)))
-            return rollers[n](state, src)
-
-        def window_src(i0):
-            w = self._window_arrays(i0, nf)
-            return TimeSeriesInputSource(
-                times=w["__times__"],
-                series={k: v for k, v in w.items() if k != "__times__"})
-
-        def aligned_i0(t_now):
-            i0 = int(np.floor((t_now - self.times[0]) / dts))
-            return max(0, min(i0, self.times.shape[0] - W))
-
-        done = 0
-        i0 = aligned_i0(float(sim.state.clock.time))
-        win = jax.device_put(window_src(i0))
-        while done < steps:
-            n = min(chunk_steps, steps - done)
-            n -= n % inner
-            if n == 0:
-                n = steps - done  # tail smaller than inner: steps%inner==0
-            t_next = float(sim.state.clock.time) + n * dt
-            state_new = roll(sim.state, win, n)  # async dispatch
-            done += n
-            if done < steps:  # overlap the next transfer with compute
-                next_i0 = aligned_i0(t_next)
-                next_win = (jax.device_put(window_src(next_i0))
-                            if next_i0 != i0 else win)
-                i0, win = next_i0, next_win
-            sim.state = state_new
         sim.compute_auxiliary()
         return sim

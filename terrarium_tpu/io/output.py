@@ -1,6 +1,6 @@
 """Simulation output writers and schedules.
 
-TPU-native equivalent of the reference's delegation to Oceananigans
+JAX equivalent of the reference's delegation to Oceananigans
 `Simulation` output machinery (SURVEY §2.10): `JLD2Writer`-style field
 time-series output with `TimeInterval` / `IterationInterval` /
 `AveragedTimeInterval` schedules and progress callbacks

@@ -1,6 +1,6 @@
 """Raster-backed input sources for masked global grids.
 
-TPU-native equivalent of the reference `RasterInputSource`
+JAX equivalent of the reference `RasterInputSource`
 (`ext/TerrariumRastersExt/TerrariumRastersExt.jl:21-147`): NetCDF rasters are
 gathered through the grid's land-mask ``idx`` map into packed ``(T, cells)``
 arrays once on host, then time-interpolated on device each step (linear, flat

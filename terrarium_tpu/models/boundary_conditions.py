@@ -1,6 +1,6 @@
 """Named boundary-condition builders for soil models.
 
-TPU-native equivalent of reference `src/models/soil/soil_model_bcs.jl`.
+JAX equivalent of reference `src/models/soil/soil_model_bcs.jl`.
 Each helper returns a BC dict mergeable with
 :func:`~terrarium_tpu.ops.bcs.merge_boundary_conditions`. Default values are
 input-variable references (strings), matching the reference's `Variable`

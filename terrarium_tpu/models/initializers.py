@@ -1,6 +1,6 @@
 """Model/state initializers.
 
-TPU-native equivalent of reference `src/initializers.jl` and
+JAX equivalent of reference `src/initializers.jl` and
 `src/models/soil/soil_model_init.jl`.
 """
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """LandModel: fully-coupled land surface model.
 
-TPU-native equivalent of reference `src/models/coupled/land_model.jl`:
+JAX equivalent of reference `src/models/coupled/land_model.jl`:
 atmosphere + soil + surface energy balance + surface hydrology (+ optional
 vegetation). The surface <-> subsurface flux coupling replicates
 `land_model.jl:46-66`: the SEB's `ground_heat_flux` is installed as the top

@@ -1,6 +1,6 @@
 """SoilModel: 1D column model of soil energy/water/carbon transport.
 
-TPU-native equivalent of reference `src/models/soil/soil_model.jl`.
+JAX equivalent of reference `src/models/soil/soil_model.jl`.
 """
 from __future__ import annotations
 

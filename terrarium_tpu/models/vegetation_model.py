@@ -1,6 +1,6 @@
 """Standalone vegetation and surface-energy models.
 
-TPU-native equivalents of reference `src/models/vegetation/vegetation_model.jl`
+JAX equivalents of reference `src/models/vegetation/vegetation_model.jl`
 and `src/models/surface/surface_energy_model.jl`.
 """
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Vertical boundary conditions.
 
-TPU-native replacement for the reference's Oceananigans BC machinery
+JAX replacement for the reference's Oceananigans BC machinery
 (`src/boundary_conditions.jl`, halo fills in `src/state_variables.jl:85-100`).
 Instead of filling halo regions of mutable fields, boundary conditions are
 applied *inside* the vertical operators:

@@ -9,9 +9,9 @@ axis. Arrays are ``(Nz, cells)``.
   substitution per column batch). Differentiable; used by the jax.grad
   test battery.
 * :func:`tridiag_solve_pcr` — parallel cyclic reduction: ``ceil(log2 Nz)``
-  fully-vectorised elimination rounds with no sequential z dependence, the
-  TPU-friendly form (stable for the diagonally-dominant systems produced by
-  the implicit heat/Richards discretizations).
+  fully-vectorised elimination rounds with no sequential z dependence
+  (stable for the diagonally-dominant systems produced by the implicit
+  heat/Richards discretizations).
 """
 from __future__ import annotations
 
@@ -20,10 +20,7 @@ import jax.numpy as jnp
 
 __all__ = ["tridiag_solve", "tridiag_solve_pcr"]
 
-#: `lax.scan` unroll of the Thomas sweeps. 2 is the measured XLA-path
-#: optimum (experiments/ab_unroll.py). Mosaic's scan lowering supports only
-#: unroll in {1, n}, so set "full" to trace Thomas into the fused Pallas
-#: kernel (the r5 in-kernel Thomas-vs-PCR A/B, experiments/ab_implicit_r5.py)
+#: `lax.scan` unroll of the Thomas sweeps (not yet measured on the GPU).
 THOMAS_UNROLL = 2
 
 
@@ -49,33 +46,8 @@ def tridiag_solve(a, b, c, d):
         d_new = (d_k - a_k * d_prev) / denom
         return (c_new, d_new), (c_new, d_new)
 
-    n = b.shape[0]
-    if THOMAS_UNROLL == "full":
-        # fully-unrolled trace-time loop for the fused Pallas kernel:
-        # Mosaic's scan lowering rejects extensive outputs (the stacked
-        # c'/d' sweeps), and value integer-indexing is not lowerable —
-        # static (1, cells) row slices + one concatenate instead. Same
-        # arithmetic and order as the scan form.
-        cs, ds = [], []
-        c_prev = d_prev = jnp.zeros_like(b[:1])
-        for k in range(n):
-            a_k = a[k:k + 1] if k > 0 else jnp.zeros_like(b[:1])
-            denom = b[k:k + 1] - a_k * c_prev
-            c_prev = c[k:k + 1] / denom
-            d_prev = (d[k:k + 1] - a_k * d_prev) / denom
-            cs.append(c_prev)
-            ds.append(d_prev)
-        x_next = jnp.zeros_like(b[:1])
-        xs = [None] * n
-        for k in range(n - 1, -1, -1):
-            x_next = ds[k] - cs[k] * x_next
-            xs[k] = x_next
-        return jnp.concatenate(xs, axis=0)
-
     zeros = jnp.zeros_like(b[0])
     u = int(THOMAS_UNROLL)
-    # .at[] is not Mosaic-lowerable; the iota row mask is (vertical_ops
-    # conventions) — needed when tracing into the fused kernel
     idx = jax.lax.broadcasted_iota(jnp.int32, a.shape, 0)
     a0 = jnp.where(idx == 0, 0.0, a)
     (_, _), (c_prime, d_prime) = jax.lax.scan(fwd, (zeros, zeros), (a0, b, c, d),
@@ -134,15 +106,11 @@ def tridiag_solve_pair_rows(sys_a, sys_b):
     one fully-unrolled Thomas sweep whose row operations are ``(2, cells)``
     pairs — both systems' row k packed into one op.
 
-    Rationale (r5, KERNELS_r05 implicit attribution): on the VPU a
-    ``(1, block)`` row op occupies 1/8 of each vector register's sublanes,
-    and Mosaic issues per-vreg regardless of utilization — so the
-    row-sequential Thomas pays 8x its flop count. Packing the two systems
-    the implicit stepper solves per step (heat + Richards) doubles sublane
-    utilization and halves the sweep's instruction count. Arithmetic per
-    element is identical to two independent solves (row-wise
+    Packing the two systems the implicit stepper solves per step (heat +
+    Richards) halves the number of row operations of the sweep. Arithmetic
+    per element is identical to two independent solves (row-wise
     vectorization), so results match `tridiag_solve` bitwise up to FMA
-    contraction. Mosaic-safe: static row slices + concatenates only.
+    contraction. Not yet measured on the GPU.
 
     Args: two ``(a, b, c, d)`` tuples of ``(Nz, cells)`` arrays.
     Returns: ``(x_a, x_b)``.

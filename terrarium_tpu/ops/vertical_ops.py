@@ -1,11 +1,11 @@
 """Vertical finite-volume stencil operators.
 
-TPU-native replacement for the Oceananigans stencil operators used by the
-reference (`∂zᵃᵃᶜ`, `∂zᵃᵃᶠ`, `ℑzᵃᵃᶠ`, `Δzᵃᵃᶜ`; see SURVEY §3.3). All
-operators are vectorised over the whole ``(Nz, cells)`` block — XLA fuses the
-shifted adds/multiplies into a single VPU pass over the array, which is the
-TPU-idiomatic form of a per-point vertical stencil (z on sublanes, cells on
-lanes). ``k = 0`` is the bottom layer, ``k = Nz - 1`` the top (surface).
+Replacement for the Oceananigans stencil operators used by the reference
+(`∂zᵃᵃᶜ`, `∂zᵃᵃᶠ`, `ℑzᵃᵃᶠ`, `Δzᵃᵃᶜ`; see SURVEY §3.3). All operators are
+vectorised over the whole ``(Nz, cells)`` block — XLA fuses the shifted
+adds/multiplies into elementwise passes over the array (z leading, cells
+contiguous). ``k = 0`` is the bottom layer, ``k = Nz - 1`` the top
+(surface).
 
 Face arrays have shape ``(Nz + 1, cells)``; face ``f`` sits between centers
 ``f - 1`` and ``f`` (face 0 = bottom boundary, face Nz = top boundary).
@@ -34,52 +34,30 @@ __all__ = [
 
 #: How z-axis shifts (row concatenations) lower. ``"pad"`` expresses each
 #: shift as ONE `lax.pad` with negative padding on one side (trim) and
-#: positive on the other (fill) — on TPU the pad folds into the consumer
-#: fusion, where a `concatenate` materializes a copy kernel (the same
-#: measurement that drove CUMMIN_IMPL below). ``"concat"`` keeps the
-#: concatenate lowering for A/B comparison.
+#: positive on the other (fill), which XLA can fold into the consuming
+#: fusion; ``"concat"`` keeps the slice + concatenate lowering. The choice
+#: has not been measured on the GPU yet.
 #:
 #: The pad lowering is only used when the default backend is NOT the CPU:
-#: the EAGER `lax.pad` thunk heap-corrupts on this jaxlib CPU build
-#: (reproduced standalone: repeated eager pads of a (20, 4) f64 array abort
-#: with glibc "free(): invalid next size"; the jitted form is clean over
-#: 2000 iterations). A tracer check alone is not sufficient — JVP/batch
-#: tracers from unjitted `jax.grad`/`jax.vmap` still dispatch their primal
-#: pads through the eager thunk — so on CPU every call takes the concat
-#: form, which is bit-identical (CPU is the dev/test backend; the measured
-#: pad win is a TPU fusion effect).
+#: the EAGER `lax.pad` thunk heap-corrupted on an earlier jaxlib CPU build
+#: (repeated eager pads of a (20, 4) f64 array aborted with glibc
+#: "free(): invalid next size"; the jitted form was clean over 2000
+#: iterations). A tracer check alone is not sufficient — JVP/batch tracers
+#: from unjitted `jax.grad`/`jax.vmap` still dispatch their primal pads
+#: through the eager thunk — so on CPU every call takes the concat form,
+#: which is bit-identical. The choice keys on `jax.default_backend()`, not
+#: on the device a computation is placed on: code that runs on the CPU
+#: device of a GPU process takes the pad form, and must run under `jit`.
 SHIFT_IMPL = "pad"
-
-#: Set (via :func:`force_concat_shifts`) while tracing a Pallas kernel body:
-#: Mosaic's `lax.pad` lowering rejects negative (trimming) padding, so inside
-#: kernels the shifts take the slice+concatenate form (bit-identical; Mosaic
-#: lowers concatenate natively).
-_FORCE_CONCAT = False
-
-
-class force_concat_shifts:
-    """Context manager selecting the concat lowering for z-shifts (used while
-    tracing Pallas kernel bodies, where negative `lax.pad` cannot lower)."""
-
-    def __enter__(self):
-        global _FORCE_CONCAT
-        self._prev = _FORCE_CONCAT
-        _FORCE_CONCAT = True
-
-    def __exit__(self, *exc):
-        global _FORCE_CONCAT
-        _FORCE_CONCAT = self._prev
 
 
 def pad_z(x, lo: int, hi: int, fill=0.0):
     """Grow/trim ``x`` along the z axis: ``lo``/``hi`` rows added at the
     bottom/top (negative = trimmed), vacated rows take ``fill``. Lowered as a
-    single `lax.pad` (fuses into consumers on TPU); see ``SHIFT_IMPL`` for
-    the CPU fallback."""
+    single `lax.pad`; see ``SHIFT_IMPL`` for the CPU fallback."""
     import jax
 
-    if (SHIFT_IMPL != "concat" and not _FORCE_CONCAT
-            and jax.default_backend() != "cpu"):
+    if SHIFT_IMPL != "concat" and jax.default_backend() != "cpu":
         zero = (0, 0, 0)
         return jax.lax.pad(x, jnp.asarray(fill, x.dtype),
                            ((lo, hi, 0),) + (zero,) * (x.ndim - 1))
@@ -96,46 +74,18 @@ def pad_z(x, lo: int, hi: int, fill=0.0):
     return jnp.concatenate(parts, axis=0) if len(parts) > 1 else x
 
 
-#: In-kernel lowering of :func:`shift_z` (active only under
-#: ``force_concat_shifts``, i.e. while tracing a Pallas kernel body):
-#: ``"concat"`` — fill-row + slice + concatenate (the r2-r4 form);
-#: ``"roll"`` — `pltpu.roll` sublane rotate + iota-masked fill (r5
-#: headline experiment: the census counts ~1k concat ops/cell*step; a
-#: rotate may lower cheaper). A/B: experiments/ab_shift_roll.py.
-KERNEL_SHIFT_IMPL = "concat"
-
-
 def shift_z(x, d: int, fill=0.0):
     """Shift ``x`` by ``d`` rows toward higher k (same length): row ``k``
     of the result is ``x[k - d]``; vacated rows take ``fill``."""
-    if (_FORCE_CONCAT and KERNEL_SHIFT_IMPL == "roll" and d != 0
-            and jnp.ndim(x) >= 2 and abs(d) < x.shape[0]):
-        import jax
-        from jax.experimental.pallas import tpu as pltpu
-
-        # roll requires a non-negative shift: d < 0 rotates by n + d
-        rolled = pltpu.roll(x, d % x.shape[0], 0)  # row k <- x[(k - d) % n]
-        idx = jax.lax.broadcasted_iota(jnp.int32, x.shape, 0)
-        vac = idx < d if d > 0 else idx >= x.shape[0] + d
-        return jnp.where(vac, jnp.asarray(fill, x.dtype), rolled)
     return pad_z(x, d, -d, fill)
 
 
 def _row_mask(shape, row, dtype=None):
-    """One-hot mask for a z-row.
-
-    Outside Pallas tracing this is a trace-time ``(Nz, 1, ...)`` boolean
-    CONSTANT (broadcasts against ``shape`` in the consumer): iota-built masks
-    are loop-*variant* to XLA's invariant-code sinking, which materialized
-    them as three extra tiny kernel launches per scan iteration (measured in
-    the N145 rollout HLO, experiments/rollout_tpu.hlo). Inside Pallas kernels
-    (``force_concat_shifts`` active) the broadcasted_iota form is kept —
-    Mosaic cannot materialize array constants."""
-    import jax
-
-    if _FORCE_CONCAT:
-        idx = jax.lax.broadcasted_iota(jnp.int32, shape, 0)
-        return idx == (row % shape[0])
+    """One-hot mask for a z-row: a trace-time ``(Nz, 1, ...)`` boolean
+    CONSTANT (broadcasts against ``shape`` in the consumer). Iota-built
+    masks are loop-*variant* to XLA's invariant-code sinking, which
+    materialized them as extra tiny kernels per scan iteration in the N145
+    rollout HLO."""
     import numpy as np
 
     m = np.zeros((shape[0],) + (1,) * (len(shape) - 1), dtype=bool)
@@ -144,15 +94,16 @@ def _row_mask(shape, row, dtype=None):
 
 
 #: Lowering of :func:`cumsum_z`:
-#: * ``"dot"`` — one triangular ``(Nz, Nz) @ (Nz, cells)`` matmul on the MXU
-#:   (HIGHEST precision so f32 sums are exact, which costs multiple MXU
-#:   passes); a dot cannot fuse with neighboring elementwise work.
+#: * ``"dot"`` — one triangular ``(Nz, Nz) @ (Nz, cells)`` matmul at
+#:   ``Precision.HIGHEST``, so float32 sums are exact and never run in TF32;
+#:   a dot cannot fuse with neighboring elementwise work.
 #: * ``"pad"`` — radix-``CUMSUM_RADIX`` Hillis-Steele doubling: each stage
 #:   adds ``radix - 1`` pad-shifted copies of the same stage input (one
 #:   fusion per stage, like ``cummin_z``), and the first/last stages fuse
 #:   into producers/consumers. Different float summation ORDER than "dot"
 #:   (tree vs row-sequential), so results differ by rounding — pick per
 #:   deployment and regenerate goldens on a switch.
+#: Neither has been measured on the GPU yet (ROADMAP A5).
 CUMSUM_IMPL = "dot"
 CUMSUM_RADIX = 4
 
@@ -178,11 +129,8 @@ def _radix_scan_z(x, combine, identity, radix: int, reverse: bool):
 
 
 def cumsum_z(x, reverse: bool = False):
-    """Cumulative sum over the (tiny) z axis (see ``CUMSUM_IMPL``).
-
-    For ``Nz ~ 30`` the matmul form is ~20x faster on TPU than a sequential
-    ``lax.scan`` and several times faster than the reduce-window lowering of
-    ``jnp.cumsum`` (measured on the N145 benchmark shapes)."""
+    """Cumulative sum over the (tiny) z axis (see ``CUMSUM_IMPL``); both
+    forms avoid a sequential ``lax.scan`` over z."""
     import jax
 
     n = x.shape[0]
@@ -196,26 +144,18 @@ def cumsum_z(x, reverse: bool = False):
         precision=jax.lax.Precision.HIGHEST)
 
 
-#: Implementation used by :func:`cummin_z` (all exact and bit-identical;
-#: chosen by measurement on the N145 benchmark, see docs/performance.md):
+#: Implementation used by :func:`cummin_z` (all exact and bit-identical):
 #: * ``"pad"`` — each Hillis-Steele shift as ONE `lax.pad` with negative
 #:   high-padding (trim d rows) + positive low-padding (d fill rows), which
-#:   folds into the stage's minimum fusion on TPU (no separate row-slice
-#:   copy kernel).
-#: * ``"hs"`` — plain shifted-concatenate stages (lowered as slice +
-#:   pad/minimum fusion: one extra copy kernel per stage).
-#: * ``"dot"`` — shifts as (Nz, Nz) permutation matmuls on the MXU
-#:   (measured 12% slower end-to-end: HIGHEST-precision dot passes cost
-#:   more than the slice copies they remove).
+#:   can fold into the stage's minimum fusion.
+#: * ``"hs"`` — plain shifted-concatenate stages.
+#: * ``"dot"`` — shifts as (Nz, Nz) permutation matmuls at
+#:   ``Precision.HIGHEST``.
 CUMMIN_IMPL = "pad"
 
 #: Radix of the doubling recursion under ``CUMMIN_IMPL == "pad"``: each stage
 #: mins ``radix - 1`` shifted copies (all folded into one fusion by XLA), so
-#: stages = ceil(log_radix Nz). Radix 2 = classic Hillis-Steele. Radix 4
-#: measured ~+1% on the N145 benchmark at production block sizes (3 stages
-#: instead of 5 for Nz=30); radix 6/8 are slower — the stages are VPU-bound,
-#: so wider min trees cost more than the fusion launches they remove
-#: (experiments/ab_radix_bigblock.py).
+#: stages = ceil(log_radix Nz). Radix 2 = classic Hillis-Steele.
 CUMMIN_RADIX = 4
 
 
@@ -264,7 +204,7 @@ def cummin_z(x, reverse: bool = False):
 
 def cumsum_cummin_z(a, radix: int = 4):
     """Joint ``(S, M) = (cumsum_z(a), cummin_z(cumsum_z(a)))`` in ONE
-    radix-``radix`` doubling pass over two channels — no MXU dot at all.
+    radix-``radix`` doubling pass over two channels — no matmul at all.
 
     The pair ``(s, m)`` = (segment sum, min prefix-sum within the segment) is
     closed under ordered segment concatenation::
@@ -305,8 +245,7 @@ def ghosts(c, bc_bottom, bc_top, state, dz_faces):
       enters through the tendency instead.
 
     Returns ``(ghost_bottom, ghost_top)``, each of shape ``(1, cells)``.
-    ``dz_faces`` is the ``(Nz + 1, 1)`` face-spacing array. Only static
-    slices are used (Pallas/Mosaic-compatible).
+    ``dz_faces`` is the ``(Nz + 1, 1)`` face-spacing array.
     """
     c_bot, c_top = c[:1], c[-1:]
     dzf_bot, dzf_top = dz_faces[:1], dz_faces[-1:]
@@ -345,12 +284,9 @@ def _face_operands(c, ghost_bottom, ghost_top):
 
 
 #: Strength-reduce the hot divisions by grid-coordinate arrays into
-#: multiplies by their (tiny, (Nz,1)-shaped) reciprocals. The roofline
-#: census prices div at ~2.7x mul on this VPU (341 vs 937 G/s) and the
-#: step does ~300 full-tile coordinate divisions per cell*step; computing
-#: the reciprocal on the (Nz, 1) column costs 512x fewer lanes. Changes
-#: results by ~1 ulp (x * (1/c) vs x / c) — goldens regenerate on a
-#: default flip. A/B: experiments/ab_recip_div.py.
+#: multiplies by their (tiny, (Nz,1)-shaped) reciprocals. Changes results by
+#: ~1 ulp (x * (1/c) vs x / c) — goldens regenerate on a default flip. Off;
+#: not measured on the GPU.
 RECIP_COORD_DIV = False
 
 
@@ -412,8 +348,7 @@ def apply_flux_bcs(tend, var_bcs, state, dz, xy=None):
     dz2 = dz if dz.ndim == 2 else dz[:, None]
     if xy is None:
         # XY tendencies: rank-1, or a single-row rank-2 leaf on a multi-layer
-        # grid (the fused kernel's XY-rank-2 mode keeps XY leaves as
-        # (1, cells))
+        # grid
         xy = tend.ndim == 1 or (tend.ndim == 2 and tend.shape[0] == 1
                                 and dz2.shape[0] != 1)
     is_xy = xy

@@ -1,4 +1,3 @@
 from .halo import lateral_diffusion_forcing, neighbor_shift
-from .sharding import (cell_mesh, initialize_distributed,
-                       make_sharded_fused_rollout, replicate, shard_sources,
-                       shard_state, state_shardings)
+from .sharding import (cell_mesh, initialize_distributed, replicate,
+                       shard_sources, shard_state, state_shardings)

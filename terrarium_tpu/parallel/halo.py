@@ -2,9 +2,9 @@
 
 The reference explicitly defers lateral coupling ("2D/3D flow",
 `README.md:123`); every shipped process is laterally independent. This
-module provides the TPU-native machinery a lateral operator needs
-(SURVEY §2.11: "any future lateral coupling becomes a halo exchange over
-ICI"), plus a reference lateral-diffusion operator wired through the
+module provides the machinery a lateral operator needs (SURVEY §2.11:
+"any future lateral coupling becomes a halo exchange" between devices),
+plus a reference lateral-diffusion operator wired through the
 generic forcing hooks:
 
 * :func:`neighbor_shift` — value of the left/right neighbor column along
@@ -14,7 +14,7 @@ generic forcing hooks:
   `collective-permute` automatically (verified in tests). Inside
   `shard_map` pass ``axis_name``: the single edge column is exchanged
   explicitly with `lax.ppermute` and everything else stays local — the
-  halo traffic is one column per shard boundary per step, riding ICI.
+  halo traffic is one column per shard boundary per step.
 * :func:`lateral_diffusion_forcing` — `d(var)/dt += c*(x_{i-1} - 2 x_i +
   x_{i+1})/dx^2`, attachable to ANY prognostic via
   ``initialize(..., forcings={var: fn})`` with no model changes.
@@ -31,14 +31,11 @@ Two adjacency levels:
   sum exactly on the real N72/N145 masks; tests/test_lateral_ring.py).
   Unsharded it is a single 4-wide take along the cells axis; under
   `jax.shard_map` the neighbor gather is decomposed into a fixed-width
-  halo exchange (ONE `lax.ppermute` per side per step, riding ICI) plus
-  purely local gathers with per-shard index slabs.
+  halo exchange (ONE `lax.ppermute` per side per step) plus purely local
+  gathers with per-shard index slabs.
 
-Lateral coupling is an XLA-path feature: the fused Pallas kernel
-processes disjoint cell blocks, so a cross-cell shift inside it would
-read stale block edges. Keep ``fused_inner_steps=None`` for laterally
-coupled runs (the XLA lean scan remains collective-free EXCEPT the
-boundary permutes this operator asks for).
+With lateral coupling the sharded rollout stays collective-free EXCEPT the
+boundary permutes this operator asks for.
 """
 from __future__ import annotations
 

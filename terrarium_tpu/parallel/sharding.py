@@ -1,16 +1,16 @@
-"""Sharding of the packed cell dimension over a TPU device mesh.
+"""Sharding of the packed cell dimension over a device mesh.
 
 The reference has no distributed execution (SURVEY §2.11); its only
-parallelism is per-cell data parallelism on a single device. The TPU-native
-equivalent: the packed ``cells`` axis (the trailing axis of every field) is
-domain-decomposed over chips with `jax.sharding.NamedSharding`. Per-column
-physics has no lateral dependencies, so the step runs collective-free;
-collectives appear only in global diagnostics (means/integrals) and at I/O
-boundaries (gather for output, scatter for forcing).
+parallelism is per-cell data parallelism on a single device. Here the packed
+``cells`` axis (the trailing axis of every field) is domain-decomposed over
+devices with `jax.sharding.NamedSharding` and XLA's SPMD partitioner.
+Per-column physics has no lateral dependencies, so the step runs
+collective-free; collectives appear only in global diagnostics
+(means/integrals) and at I/O boundaries (gather for output, scatter for
+forcing).
 
-``z`` (the leading axis) stays whole on every chip — vertical stencils and
-tridiagonal solves remain local, which is the speed-of-light layout for this
-model family.
+``z`` (the leading axis) stays whole on every device — vertical stencils and
+tridiagonal solves remain local, so no step needs communication.
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 __all__ = ["cell_mesh", "shard_state", "shard_sources", "state_shardings",
-           "replicate", "initialize_distributed", "make_sharded_fused_rollout"]
+           "replicate", "initialize_distributed"]
 
 CELL_AXIS = "cells"
 
@@ -32,11 +32,12 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     """Initialize multi-host execution (`jax.distributed.initialize`).
 
     Call once per host before building grids; afterwards `jax.devices()`
-    spans the whole pod slice and `cell_mesh()` / `shard_state` work
-    unchanged — the cell axis is decomposed across all hosts' chips over
-    ICI/DCN. Arguments default to cluster auto-detection (TPU pod
-    environment variables). Returns the process index. No-ops gracefully in
-    single-process environments.
+    spans every host's devices and `cell_mesh()` / `shard_state` work
+    unchanged — the cell axis is decomposed across all hosts' devices.
+    Arguments default to cluster auto-detection; where the cluster cannot
+    be detected, pass ``coordinator_address`` (``host:port``),
+    ``num_processes`` and ``process_id``. Returns the process index.
+    No-ops gracefully in single-process environments.
     """
     try:
         jax.distributed.initialize(coordinator_address=coordinator_address,
@@ -137,95 +138,3 @@ def shard_sources(sources, cells: int, mesh: Optional[Mesh] = None,
 def replicate(tree, mesh: Optional[Mesh] = None):
     mesh = mesh if mesh is not None else cell_mesh()
     return jax.device_put(tree, NamedSharding(mesh, P()))
-
-
-def _localize_source(src, local_cells: int):
-    """Build-time stand-in of an input source with its cell axis cut to the
-    per-device width (the sharded fused rollout traces per-shard shapes;
-    runtime values arrive as the actual shards)."""
-    from ..io.input_sources import FieldInputSource, TimeSeriesInputSource
-
-    def cut(v):
-        v = np.asarray(v)
-        return v[..., :local_cells] if v.ndim >= 1 and v.shape[-1] > local_cells \
-            else v
-
-    if isinstance(src, TimeSeriesInputSource):
-        # a (T,) scalar series has no cell axis — never cut its time axis
-        return TimeSeriesInputSource(
-            times=np.asarray(src.times),
-            series={k: (cut(v) if np.ndim(v) >= 2 else np.asarray(v))
-                    for k, v in src.series.items()}, dims=src.dims)
-    if isinstance(src, FieldInputSource):
-        return FieldInputSource(fields={k: cut(v) for k, v in src.fields.items()},
-                                dims=src.dims)
-    return src  # scalar-only/opaque sources pass through
-
-
-def make_sharded_fused_rollout(model, timestepper, ctx, input_sources=(), *,
-                               mesh: Optional[Mesh] = None, dt: float,
-                               inner_steps: int, block_cells: int = 1024,
-                               unroll: int = 1, axis_name: str = CELL_AXIS,
-                               interpret=None, xy_rank2: bool = False):
-    """Fused lean Pallas rollout under a device mesh.
-
-    A bare `pallas_call` has no SPMD partitioning rule — under jit with
-    cells-sharded operands XLA would insert a full gather in front of it.
-    This wrapper runs the kernel *inside* `jax.shard_map`: the fused rollout
-    is built for the per-device cell width and each device executes its own
-    kernel grid over its local shard, so the production path stays
-    collective-free on the mesh exactly like the XLA step
-    (`test_sharding.py`). Requires ``cells % n_devices == 0`` (ring grids:
-    construct with ``pad_multiple=n_devices``) and registered-pytree input
-    sources (SURVEY §2.11 obligations).
-
-    Returns ``rollout(state, n, ts_srcs) -> state`` where ``state`` is
-    cells-sharded on ``mesh`` and ``ts_srcs`` is the tuple of time-varying
-    sources (placed with :func:`shard_sources`)."""
-    import dataclasses as _dc
-
-    from ..grids.column import ColumnGrid
-    from ..ops.fused_step import make_fused_lean_rollout
-
-    mesh = mesh if mesh is not None else cell_mesh()
-    n_dev = int(np.prod([mesh.shape[a] for a in mesh.axis_names]))
-    grid = model.grid
-    if grid.cells % n_dev:
-        raise ValueError(
-            f"cells={grid.cells} not divisible by {n_dev} devices; pad the "
-            f"grid (ColumnRingGrid pad_multiple)")
-    local = grid.cells // n_dev
-    local_grid = ColumnGrid(cells=local, vertical=grid.vertical, nf=grid.nf)
-    local_model = _dc.replace(model, grid=local_grid)
-    local_sources = tuple(_localize_source(s, local) for s in input_sources)
-    fused = make_fused_lean_rollout(
-        local_model, timestepper, ctx, local_sources, dt=dt,
-        inner_steps=inner_steps, block_cells=min(block_cells, local),
-        unroll=unroll, interpret=interpret, xy_rank2=xy_rank2)
-
-    def rollout(state, n: int, ts_srcs=None):
-        if ts_srcs is None:
-            ts_srcs = tuple(s for s in input_sources if hasattr(s, "times"))
-        state_specs = jax.tree_util.tree_map(
-            lambda l: _spec_for(l, axis_name), state)
-        # series leaves shard on cells; time coordinates replicate (matches
-        # shard_sources placement, which `jax.shard_map` requires)
-        from ..io.input_sources import TimeSeriesInputSource
-
-        def src_spec(src):
-            # (T,) scalar series replicate (their only axis is TIME);
-            # (T, cells) series shard on cells
-            return TimeSeriesInputSource(
-                times=P(),
-                series={k: (_spec_for(v, axis_name)
-                            if getattr(v, "ndim", 0) >= 2 else P())
-                        for k, v in src.series.items()},
-                dims=src.dims)
-
-        ts_specs = tuple(src_spec(s) for s in ts_srcs)
-        fn = jax.shard_map(lambda s, t: fused(s, n, t), mesh=mesh,
-                           in_specs=(state_specs, ts_specs),
-                           out_specs=state_specs, check_vma=False)
-        return fn(state, ts_srcs)
-
-    return rollout

@@ -1,6 +1,6 @@
 """Prescribed near-surface atmosphere.
 
-TPU-native equivalent of reference `src/processes/atmosphere/`
+JAX equivalent of reference `src/processes/atmosphere/`
 (`prescribed_atmosphere.jl`, `aerodynamics.jl`): a bundle of input variables
 (air temperature/pressure, windspeed, humidity, precipitation, radiation,
 tracer gases) plus accessor/derived-quantity helpers. All accessors operate on

@@ -1,6 +1,6 @@
 """Process/model interface.
 
-TPU-native equivalent of the reference process protocol
+JAX equivalent of the reference process protocol
 (`src/abstract_model.jl`): a *process* declares variables and contributes pure
 state transformations. Where the reference mutates fields via kernel launches,
 here every hook is a pure function ``state -> state`` (auxiliary updates via

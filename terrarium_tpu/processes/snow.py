@@ -29,7 +29,7 @@ coupled process:
   default (the reference's conditional-defaults idiom,
   `land_model.jl:111-125`).
 
-Everything is elementwise over ``(cells,)`` — one fused VPU pass on TPU.
+Everything is elementwise over ``(cells,)`` — one fused elementwise pass.
 """
 from __future__ import annotations
 

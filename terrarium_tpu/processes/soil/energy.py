@@ -1,10 +1,10 @@
 """Soil energy balance: two-phase heat conduction + energy-temperature closure.
 
-TPU-native equivalent of reference
+JAX equivalent of reference
 `src/processes/soil/energy/soil_energy.jl` and
 `soil_energy_closures.jl`. The per-point kernel stack (kernel -> kernel
 function -> primitive) collapses into vectorised ``(Nz, cells)`` array
-expressions which XLA fuses into a single VPU pass; this is the hot loop of
+expressions which XLA fuses into elementwise passes; this is the hot loop of
 the framework (SURVEY §3.3).
 """
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Soil hydraulic properties parameterizations.
 
-TPU-native equivalent of reference
+JAX equivalent of reference
 `src/processes/soil/hydrology/soil_hydraulic_properties.jl`.
 """
 from __future__ import annotations

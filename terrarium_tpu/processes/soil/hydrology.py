@@ -1,6 +1,6 @@
 """Soil hydrology: immobile water (NoFlow) and Richards-equation flow.
 
-TPU-native equivalent of reference
+JAX equivalent of reference
 `src/processes/soil/hydrology/soil_hydrology.jl`, `soil_hydrology_rre.jl`,
 and `soil_hydraulic_closures.jl`. The reference's order-dependent
 `adjust_saturation_profile!` z-sweeps become `lax.scan`s over the z axis with
@@ -25,13 +25,12 @@ __all__ = ["NoFlow", "RichardsEq", "SoilSaturationPressureClosure", "SoilHydrolo
 
 #: Lowering of :meth:`SoilHydrology.adjust_saturation_profile` (all
 #: mathematically equivalent; float rounding differs, goldens regenerated on
-#: a switch — see docs/performance.md):
+#: a switch; not yet measured on the GPU):
 #: * ``"fused"`` — the telescoped form below with the forward prefix pair
 #:   ``(S, cummin S)`` computed by :func:`ops.vertical_ops.cumsum_cummin_z`
-#:   in one doubling pass: the closure runs with ZERO MXU dots, everything
-#:   VPU pad-shift fusions (measured fastest on the N145 bench, +31%
-#:   end-to-end over "twopass"; experiments/ab_adjust_impl.py).
-#: * ``"telescoped"`` — MXU-dot cumsum for S, doubling cummin for M; the
+#:   in one doubling pass: the closure runs with no matmul, only pad-shift
+#:   elementwise fusions.
+#: * ``"telescoped"`` — matmul cumsum for S, doubling cummin for M; the
 #:   DOWN sweep's reverse cumsum is eliminated algebraically (see below).
 #: * ``"twopass"`` — the round-2 form: two cumsum dots + two cummins.
 ADJUST_IMPL = "fused"
@@ -155,11 +154,9 @@ class SoilHydrology:
         sat = state.saturation_water_ice
         mask = sat < 1.0
         zf = grid.z_faces  # (Nz+1, 1)
-        # gather-free formulation (TPU/Mosaic friendly): z_faces increases
-        # with k, so the face below the first unsaturated cell (bottom-up) is
-        # the minimum masked face elevation; surface face if fully saturated.
-        # surface-face elevation as a true scalar: a (1, 1)-shaped operand
-        # would broadcast in both sublanes and lanes, which Mosaic rejects
+        # gather-free formulation: z_faces increases with k, so the face
+        # below the first unsaturated cell (bottom-up) is the minimum masked
+        # face elevation; surface face if fully saturated.
         top = jnp.reshape(zf[-1:], ())
         masked = jnp.where(mask, zf[:-1], top)
         wt = jnp.min(masked, axis=0)
@@ -212,8 +209,8 @@ class SoilHydrology:
         sat = state.saturation_water_ice
         dz = grid.dz  # (Nz, 1)
         dz_col = jnp.broadcast_to(dz, sat.shape)
-        # see vertical_ops.RECIP_COORD_DIV: the (Nz, 1) reciprocal is 512x
-        # fewer div lanes than dividing the full (Nz, cells) tiles
+        # see vertical_ops.RECIP_COORD_DIV: the (Nz, 1) reciprocal takes
+        # far fewer divisions than dividing the full (Nz, cells) field
         inv_dz_col = (jnp.broadcast_to(1.0 / dz, sat.shape)
                       if RECIP_COORD_DIV else None)
 
@@ -230,8 +227,8 @@ class SoilHydrology:
 
             surf = None
             if "surface_excess_water" in state:
-                # static slice + squeeze (Mosaic-compatible; `c[-1]` would
-                # lower to dynamic_slice, which Pallas TPU cannot lower)
+                # static slice + squeeze (`c[-1]` would lower to
+                # dynamic_slice)
                 spill = jnp.squeeze(self._spill_scale(c[-1:], por, sat),
                                     axis=0)
                 surf = state.surface_excess_water + spill
@@ -246,7 +243,7 @@ class SoilHydrology:
             if ADJUST_IMPL == "fused":
                 S, Mp = cumsum_cummin_z(a)
                 M = jnp.minimum(Mp, 0.0)
-            else:  # "telescoped": MXU cumsum + doubling cummin
+            else:  # "telescoped": matmul cumsum + doubling cummin
                 S = cumsum_z(a)
                 M = jnp.minimum(cummin_z(S), 0.0)
             M_in = shift_z(M, 1)  # zero carry below the bottom
@@ -403,8 +400,8 @@ class SoilHydrology:
         # float() keeps the surface elevation weakly typed (np.float64
         # scalars are strong under x64 and would promote f32 states)
         psi_z = z - float(grid.vertical.z_faces[-1])
-        # (cells,) or (1, cells) under the fused kernel's XY-rank-2 mode —
-        # canonicalize to a row for the (Nz, cells) broadcast
+        # (cells,) or (1, cells) — canonicalize to a row for the
+        # (Nz, cells) broadcast
         z0 = jnp.reshape(state.water_table, (1, -1))
         psi_h = jnp.maximum(0.0, z0 - z)
         return psi_z, psi_h

@@ -1,6 +1,6 @@
 """Coupled soil energy-water-carbon container.
 
-TPU-native equivalent of reference `src/processes/soil/soil_coupled.jl`.
+JAX equivalent of reference `src/processes/soil/soil_coupled.jl`.
 Sequences the sub-process hooks in the reference's documented order:
 auxiliary/tendencies hydrology -> biogeochem -> energy; initialization
 hydrology -> biogeochem -> energy; closures hydrology then energy.

@@ -1,10 +1,10 @@
 """Soil stratigraphy: texture, porosity, solid matrix, elementary soil volume.
 
-TPU-native equivalent of reference `src/processes/soil/stratigraphy/`
+JAX equivalent of reference `src/processes/soil/stratigraphy/`
 (`soil_texture.jl`, `soil_porosity.jl`, `soil_volume.jl`,
 `homogeneous_strat.jl`). The reference's per-point `SoilVolume` struct becomes
 a NamedTuple of (broadcastable) arrays; all formulas operate elementwise over
-``(Nz, cells)`` blocks on the VPU.
+``(Nz, cells)`` blocks.
 """
 from __future__ import annotations
 

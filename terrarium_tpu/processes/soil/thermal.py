@@ -1,6 +1,6 @@
 """Soil thermal properties and freeze characteristic.
 
-TPU-native equivalent of reference
+JAX equivalent of reference
 `src/processes/soil/energy/soil_thermal_properties.jl` and the `FreeWater`
 freeze curve from FreezeCurves.jl used by the reference
 (`soil_energy_closures.jl:131-159`).

@@ -1,12 +1,12 @@
 """Surface energy balance: albedo, radiative + turbulent fluxes, skin
 temperature, ground heat flux.
 
-TPU-native equivalent of reference `src/processes/surface_energy/`
+JAX equivalent of reference `src/processes/surface_energy/`
 (`surface_energy_balance.jl`, `skin_temperature.jl`, `radiative_fluxes.jl`,
 `turbulent_fluxes.jl`, `albedo.jl`). The reference's fused XY kernel
 (compute fluxes -> update skin temperature -> recompute fluxes,
 `surface_energy_balance.jl:95-110`) becomes one vectorised function over
-``(cells,)`` arrays; XLA fuses it into a single VPU pass.
+``(cells,)`` arrays; XLA fuses it into a single elementwise pass.
 
 Sign conventions (reference): all fluxes positive **upward**;
 R_net = SW_up - SW_down + LW_up - LW_down; G = R_net - H_s - H_l.

@@ -1,6 +1,6 @@
 """Surface hydrology: canopy interception, evapotranspiration, runoff.
 
-TPU-native equivalent of reference `src/processes/surface_hydrology/`
+JAX equivalent of reference `src/processes/surface_hydrology/`
 (`surface_hydrology.jl`, `canopy_interception/`, `evapotranspiration/`,
 `runoff/`). All schemes operate on whole ``(cells,)`` arrays.
 """
@@ -302,18 +302,14 @@ class DirectSurfaceRunoff:
             rain = rain + state.snow_melt
         S = state.surface_excess_water if "surface_excess_water" in state else \
             jnp.zeros_like(rain)
-        # static slices + squeeze (Mosaic-compatible; integer row indexing
-        # lowers to dynamic_slice, which Pallas TPU cannot lower)
+        # static slices + squeeze (integer row indexing lowers to
+        # dynamic_slice)
         k_unsat = jnp.squeeze(state.hydraulic_conductivity[-1:], 0)  # top face K
         sat_top = jnp.squeeze(state.saturation_water_ice[-1:], 0)
         unsaturated = sat_top < 1.0
         has_excess = S > 0.0
         drainage = jnp.where(has_excess, self.surface_drainage(S), 0.0)
         influx = jnp.where(has_excess, drainage, rain)
-        # `where`, not `* unsaturated`: float-by-bool multiplies are a known
-        # Mosaic layout-inference hazard on rank-1 masks (ruled out as the
-        # sole trigger of the LandModel kernel crash, but kept — see
-        # experiments/mosaic_land_repro.py); bit-identical either way
         infil = jnp.where(unsaturated, jnp.minimum(influx, k_unsat), 0.0)
         runoff = rain + drainage - infil
         return state.update(infiltration=infil, surface_runoff=runoff)

@@ -1,6 +1,6 @@
 """PALADYN vegetation carbon processes (single PFT, needleleaf defaults).
 
-TPU-native equivalent of reference `src/processes/vegetation/`
+JAX equivalent of reference `src/processes/vegetation/`
 (Willeit & Ganopolski 2016): LUE photosynthesis, Medlyn stomatal conductance,
 autotrophic respiration, phenology (stub), carbon dynamics, Lotka-Volterra
 vegetation dynamics, static exponential root distribution, and

@@ -1,6 +1,6 @@
 """State container: a JAX pytree of field arrays.
 
-TPU-native equivalent of the reference `StateVariables`
+JAX equivalent of the reference `StateVariables`
 (`src/state_variables.jl:16-54`). Where the reference holds mutable
 Oceananigans `Field`s partitioned into prognostic/tendencies/auxiliary/inputs
 (+ namespaces) and mutates them in place, here the state is an **immutable
@@ -89,8 +89,7 @@ class State:
 
         Same-size values are canonicalized (reshaped) to the existing leaf's
         shape, so shape-polymorphic physics keeps the state layout stable —
-        e.g. a ``(cells,)`` reduction written to a ``(1, cells)`` leaf under
-        the fused kernel's XY-rank-2 mode (`ops/fused_step.py`), or a
+        e.g. a ``(cells,)`` reduction written to a ``(1, cells)`` leaf, or a
         ``(1, cells)`` row slice written to a ``(cells,)`` leaf."""
         updates = {**(updates or {}), **kw}
         new = {g: dict(getattr(self, g)) for g in _GROUPS}

@@ -1,16 +1,15 @@
 """Differentiable stepping / rollout helpers.
 
-TPU-native replacement for the reference's Enzyme + Checkpointing.jl AD path
+JAX replacement for the reference's Enzyme + Checkpointing.jl AD path
 (`ext/TerrariumCheckpointingExt`, `examples/autodiff/differentiating_terrarium.jl`):
 pure step functions differentiate with `jax.grad`; long rollouts control
 reverse-mode memory with `jax.checkpoint` (rematerialisation) — the
 functional analogue of Revolve checkpointing schemes.
 
-Remat policy space (A/B'd on chip in experiments/ab_backward.py; results in
-docs/performance.md):
+Remat policy space (not yet measured on the GPU; ROADMAP A7):
 
 * ``remat=False`` — store every step's residuals: fastest backward, O(N)
-  memory. Viable surprisingly far on TPU (HBM is large relative to this
+  memory. Viable surprisingly far (device memory is large relative to this
   model family's state).
 * ``remat=True`` — per-step `jax.checkpoint`: O(1) residual memory per
   step + one forward recompute per step (the reference's
@@ -21,7 +20,7 @@ docs/performance.md):
   per-step remat in recompute count at equal asymptotic memory when
   k ~ sqrt(N).
 * ``policy=...`` — `jax.checkpoint` with a `jax.checkpoint_policies``
-  predicate (e.g. ``dots_saveable`` keeps the MXU cumsum/PCR products).
+  predicate (e.g. ``dots_saveable`` keeps the matmul cumsum products).
 """
 from __future__ import annotations
 

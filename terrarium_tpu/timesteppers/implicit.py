@@ -59,11 +59,7 @@ class ImplicitDiffusionTerms:
     phi_var: str
 
 
-_SOLVERS = {"thomas": tridiag_solve, "pcr": tridiag_solve_pcr,
-            # attribution-only: diagonal "solve" (WRONG results — isolates
-            # assembly+closure cost from the tridiagonal solve in the
-            # in-kernel timing A/B, experiments/ab_implicit_r5.py)
-            "diag_attribution_only": lambda a, b, c, d: d / b}
+_SOLVERS = {"thomas": tridiag_solve, "pcr": tridiag_solve_pcr}
 
 
 def _assemble_implicit(terms: ImplicitDiffusionTerms, state, grid, bcs, dt):
@@ -96,9 +92,7 @@ def _assemble_implicit(terms: ImplicitDiffusionTerms, state, grid, bcs, dt):
     # Dirichlet phi BCs: ghost = 2*value - interior => extra 2*K*D/(dzf*dz)
     bc_bot = get_bc(bcs, terms.phi_var, "bottom")
     bc_top = get_bc(bcs, terms.phi_var, "top")
-    # static slices + reshape, not `dzf[0, 0]` int indexing: jnp integer
-    # indexing emits `dynamic_slice`, which Pallas TPU cannot lower (the
-    # fused implicit rollout traces this assembly into a Mosaic kernel)
+    # static slices + reshape (integer indexing would emit `dynamic_slice`)
     if isinstance(bc_bot, Dirichlet):
         sb = s if jnp.ndim(s) == 0 else s[:1]
         dzf0 = jnp.reshape(dzf[:1, :1], ())
@@ -127,25 +121,12 @@ class ImplicitEuler:
     ``solver``: ``"thomas"`` (sequential scan, exact) or ``"pcr"`` (parallel
     cyclic reduction — no sequential z dependence; agrees with Thomas to
     ~1e-10 on the diagonally-dominant systems this stepper assembles).
-    Path-dependent choice, both measured on chip: PCR wins on the XLA path
-    (~1.5x — the Thomas scan costs extra launches); inside the fused Pallas
-    kernel the fully-unrolled Thomas wins (185.7 vs 168.2 M cells*steps/s,
-    r5 — 2x fewer flops and launch cost is gone; set
-    ``ops.tridiag.THOMAS_UNROLL = "full"`` when tracing it into a kernel,
-    Mosaic's scan lowering rejects the extensive-output sweep form). The
-    r5 attribution: the tridiagonal solve owns 44% of the fused implicit
-    step (diag-only variant 302 M); the remaining gap to the 2x BASELINE
-    bar is the solve's sublane inefficiency (row-sequential (1, block)
-    ops use 1/8 of the VPU tile) — experiments/ab_implicit_r5.py.
+    Which is faster on the GPU is not yet measured (ROADMAP A6).
 
     ``stack_solves``: ``True`` — solve all implicit systems (heat +
-    Richards) as ONE batched solve concatenated along the cell axis
-    (measured 5.6% slower at the XLA level and also slower in-VMEM —
-    experiments/ab_implicit_stack.py, ab_implicit_r5.py). ``"rows"`` (r5)
-    — pack the TWO systems' rows into ``(2, cells)`` Thomas sweeps
-    (`ops.tridiag.tridiag_solve_pair_rows`): doubles the fused kernel's
-    sublane utilization on the solve that owns 44% of the implicit step.
-    Defaults off (False) for parity of the XLA path.
+    Richards) as ONE batched solve concatenated along the cell axis.
+    ``"rows"`` — pack the TWO systems' rows into ``(2, cells)`` Thomas
+    sweeps (`ops.tridiag.tridiag_solve_pair_rows`). Defaults off (False).
     """
 
     dt: float = 900.0
@@ -204,8 +185,7 @@ class ImplicitEuler:
                    for t in terms]
         if (self.stack_solves == "rows" and len(systems) == 2
                 and systems[0][1][0].shape == systems[1][1][0].shape):
-            # r5: pack the two systems' rows into (2, cells) ops — doubles
-            # the unrolled Thomas sweep's sublane utilization (see
+            # pack the two systems' rows into (2, cells) ops (see
             # `tridiag_solve_pair_rows`); solver choice is implied
             from ..ops.tridiag import tridiag_solve_pair_rows
 

@@ -1,9 +1,9 @@
 """Simulation driver.
 
-TPU-native equivalent of the reference `ModelIntegrator`
+JAX equivalent of the reference `ModelIntegrator`
 (`src/timesteppers/model_integrator.jl`). The hot loop is a single jitted
-step function; multi-step rollouts run under `jax.lax.scan` with the state
-donated, so the whole simulation executes on-device without host round-trips
+step function; multi-step rollouts run under `jax.lax.scan`, so the whole
+simulation executes on-device without host round-trips
 (replacing the reference's per-step kernel-launch loop, `run!` at
 `model_integrator.jl:72-88`).
 """
@@ -75,39 +75,8 @@ class Simulation:
         self._step_fn = None
         self._rollout_fns = {}
         #: `lax.scan` unroll factor for multi-step rollouts (perf knob;
-        #: bit-identical results for any value).
+        #: equal results up to multiply-add contraction for any value).
         self.scan_unroll = 1
-        #: opt-in Pallas fused lean rollout (`ops/fused_step.py`): None =
-        #: XLA lean scan (default); an int = `inner_steps` timesteps per
-        #: VMEM-resident kernel invocation (rollout lengths must divide by
-        #: it). Equivalent to the XLA path (locked in interpret mode,
-        #: tests/test_fused_step.py); on-chip A/B:
-        #: experiments/ab_fused_rollout.py.
-        self.fused_inner_steps = None
-        #: cell-block width of the fused kernel (VMEM tile). None = auto,
-        #: keyed by model kind AND grid size (r4/r5 sweeps): coupled
-        #: LandModel kernels measured best at 640 (r4 coupled sweep: 640 >
-        #: 512/768/896, 256/2048 much slower); soil kernels 256 for small
-        #: grids (<=8192 cells), else 512 (SWEEP_r04.json: 512 beat
-        #: 256/1024 at every size >= 131k).
-        self.fused_block_cells = None
-        #: in-kernel step-loop unroll of the fused kernel (cross-step code
-        #: motion for Mosaic; raises compile time).
-        self.fused_unroll = 1
-        #: keep XY leaves rank-2 (1, block) inside the fused kernel — a
-        #: Mosaic layout-inference dodge for the coupled-kernel layout.h
-        #: crash (bit-identical results; see ops/fused_step.py xy_rank2).
-        #: None = auto: True for coupled LandModel kernels (whose rank-1
-        #: layout aborts the Mosaic compiler, r4 bisect), False otherwise.
-        self.fused_xy_rank2 = None
-        #: optional `jax.sharding.Mesh`: when set, the fused rollout runs
-        #: inside `jax.shard_map` over the cells axis (each device executes
-        #: its own kernel grid on its local shard — a bare pallas_call under
-        #: sharded operands would gather; see
-        #: `parallel.sharding.make_sharded_fused_rollout`). The state and
-        #: time-series sources must be placed with `shard_state` /
-        #: `shard_sources` on the same mesh.
-        self.mesh = None
 
     # -- compiled step ----------------------------------------------------
     @property
@@ -148,8 +117,6 @@ class Simulation:
         return self._step_fn
 
     def _rollout_fn(self, n_inner: int):
-        if self.fused_inner_steps:
-            return self._fused_rollout_fn(n_inner)
         key = (n_inner, int(self.scan_unroll))
         if key not in self._rollout_fns:
             model, ts, ctx = self.model, self.timestepper, self.ctx
@@ -197,65 +164,6 @@ class Simulation:
 
             wrapper._jit = rollout
             wrapper._cache_size = rollout._cache_size
-            self._rollout_fns[key] = wrapper
-        return self._rollout_fns[key]
-
-    def _fused_rollout_fn(self, n_inner: int):
-        """Rollout via the Pallas fused lean kernel (`fused_inner_steps`)."""
-        import jax
-
-        inner = int(self.fused_inner_steps)
-        from ..models.land_model import LandModel
-
-        coupled = isinstance(self.model, LandModel)
-        if self.fused_block_cells:
-            block = int(self.fused_block_cells)
-        elif coupled:
-            block = 640  # r4 coupled sweep winner (see attribute docstring)
-        else:
-            block = 256 if self.model.grid.cells <= 8192 else 512
-        xy_rank2 = (coupled if self.fused_xy_rank2 is None
-                    else bool(self.fused_xy_rank2))
-        key = ("fused", n_inner, inner, block,
-               int(self.fused_unroll), xy_rank2,
-               id(self.mesh))
-        if key not in self._rollout_fns:
-            if n_inner % inner != 0:
-                raise ValueError(
-                    f"rollout length {n_inner} must be a multiple of "
-                    f"fused_inner_steps={inner}")
-            dt0 = self.timestepper.default_dt()
-            if self.mesh is not None:
-                from ..parallel.sharding import make_sharded_fused_rollout
-
-                fused = make_sharded_fused_rollout(
-                    self.model, self.timestepper, self.ctx,
-                    self.input_sources, mesh=self.mesh, dt=dt0,
-                    inner_steps=inner,
-                    block_cells=block,
-                    unroll=int(self.fused_unroll),
-                    xy_rank2=xy_rank2)
-            else:
-                from ..ops.fused_step import make_fused_lean_rollout
-
-                fused = make_fused_lean_rollout(
-                    self.model, self.timestepper, self.ctx,
-                    self.input_sources, dt=dt0, inner_steps=inner,
-                    block_cells=block,
-                    unroll=int(self.fused_unroll),
-                    xy_rank2=xy_rank2)
-            # time-varying sources enter as pytree ARGUMENTS so the
-            # (T, cells) series lower as jit parameters, not HLO constants
-            jitted = jax.jit(lambda s, ts: fused(s, n_inner, ts))
-
-            def wrapper(state, dt, _dt0=dt0, _fn=jitted):
-                if float(dt) != float(_dt0):
-                    raise ValueError(
-                        f"fused rollout baked dt={_dt0}, got {dt}")
-                ts = tuple(s for s in self.input_sources
-                           if hasattr(s, "times"))
-                return _fn(state, ts)
-
             self._rollout_fns[key] = wrapper
         return self._rollout_fns[key]
 

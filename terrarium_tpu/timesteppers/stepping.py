@@ -1,6 +1,6 @@
 """Explicit timesteppers and the step-function factory.
 
-TPU-native equivalent of reference `src/timesteppers/`
+JAX equivalent of reference `src/timesteppers/`
 (`abstract_timestepper.jl`, `forward_euler.jl`, `heun.jl`). Each stepper is a
 pure function ``state -> state``; the whole step is traced once under
 ``jax.jit`` and the rollout runs as a `lax.scan` (see

@@ -22,7 +22,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-__all__ = ["lean_chain", "lean_rollout"]
+__all__ = ["lean_rollout"]
 
 
 def _dead_input_mask(flat_step, leaves, dt):
@@ -38,54 +38,6 @@ def _dead_input_mask(flat_step, leaves, dt):
         return list(used)
     except Exception:  # pragma: no cover - defensive: internal API drift
         return [True] * (len(leaves) + 1)
-
-
-def lean_chain(step, state, dt, n: int, unroll: int = 1, wrap=None):
-    """Apply ``state = step(state, dt)`` ``n`` times as a lean-carry scan and
-    return the result with **dead leaves zeroed** — i.e. exactly
-    ``pre_closure_step^n`` as the fused lean kernel computes it
-    (`ops/fused_step.make_fused_lean_rollout(apply_closure=False)`): no
-    trailing full step, dead outputs are zeros, live outputs are exact.
-
-    This is the XLA recompute form used inside the fused-gradient rollout's
-    segment backward (`timesteppers/fused_grad.py`): its `jax.vjp` yields
-    zero cotangents for dead input leaves (they are never consumed), matching
-    the fused forward's semantics. ``wrap`` (e.g. ``jax.checkpoint``) wraps
-    the scan body for within-segment rematerialisation."""
-    if n <= 0:
-        return state
-    leaves, treedef = jax.tree.flatten(state)
-
-    def flat_step(lv, d):
-        out = step(jax.tree.unflatten(treedef, lv), d)
-        out_leaves = jax.tree.leaves(out)
-        if len(out_leaves) != len(lv):
-            raise ValueError("step must preserve the state pytree structure")
-        return out_leaves
-
-    used = _dead_input_mask(flat_step, leaves, dt)
-    used_leaves = used[:len(leaves)]
-    live = [i for i, u in enumerate(used_leaves) if u]
-    shapes = [(x.shape, x.dtype) for x in leaves]
-
-    def rebuild(live_vals):
-        it = iter(live_vals)
-        return [next(it) if u else jnp.zeros(*shapes[i])
-                for i, u in enumerate(used_leaves)]
-
-    def body_core(carry):
-        out = flat_step(rebuild(carry), dt)
-        return [out[i] for i in live]
-
-    if wrap is not None:
-        body_core = wrap(body_core)
-
-    def body(carry, _):
-        return body_core(carry), None
-
-    carry, _ = jax.lax.scan(body, [leaves[i] for i in live], None,
-                            length=n, unroll=min(unroll, n))
-    return jax.tree.unflatten(treedef, rebuild(carry))
 
 
 def lean_rollout(step, state, dt, n: int, unroll: int = 1, wrap=None):

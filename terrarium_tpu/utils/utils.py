@@ -1,6 +1,6 @@
 """General utilities.
 
-TPU-native reimplementation of the helpers in the reference framework
+JAX reimplementation of the helpers in the reference framework
 (`src/utils/utils.jl`). These are plain-Python / jax.numpy equivalents of the
 type-stable tuple machinery in the Julia reference; in JAX no special machinery
 is needed since pytrees are traced statically.

@@ -1,20 +1,20 @@
 """Symbolic state-variable declarations.
 
-TPU-native equivalent of the reference variable/metadata system
+JAX equivalent of the reference variable/metadata system
 (`src/abstract_variables.jl`). Processes declare their state symbolically as
 :class:`Variable` specs; the framework collates them (:class:`Variables`),
 auto-derives tendency slots for prognostic variables, attaches closure
 variables, and materialises everything as a :class:`~terrarium_tpu.state.State`
 pytree of arrays.
 
-Spatial layout convention (TPU-first):
+Spatial layout convention:
 
 * ``XYZ`` (center) variables -> arrays of shape ``(Nz, cells)``
 * ``XYZ`` (face)   variables -> arrays of shape ``(Nz + 1, cells)``
 * ``XY``           variables -> arrays of shape ``(cells,)``
 
-``cells`` is the packed lateral (column) dimension and maps to the TPU lane
-axis; it is the axis sharded across chips. ``k = 0`` is the **bottom** layer
+``cells`` is the packed lateral (column) dimension, the trailing
+(contiguous) axis; it is the axis sharded across devices. ``k = 0`` is the **bottom** layer
 and ``k = Nz - 1`` the **top** (surface) layer, matching the reference's
 positive-up convention (`docs/src/introduction/numerical_core.md:21-22`).
 """

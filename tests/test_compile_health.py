@@ -3,10 +3,10 @@
 The analogue of the reference's compiler audits (SURVEY §4.8:
 `test/benchmarks/compilation/compiler_analysis.jl` asserts zero
 Terrarium-caused method invalidations). Here the invariants that keep the
-hot path TPU-fast are structural properties of the lowered HLO:
+hot path fast are structural properties of the lowered HLO:
 
-* no gathers / scatters / sorts / dynamic slicing in the step (the Mosaic
-  compatibility rules of the codebase — CLAUDE.md conventions);
+* no gathers / scatters / sorts / dynamic slicing in the step (the
+  conventions of the codebase — CLAUDE.md);
 * a bounded fusion count (launch overhead dominates at production sizes,
   so fusion-count regressions are throughput regressions);
 * the jitted step retraces zero times for repeated calls (cache stability).
@@ -68,9 +68,9 @@ def test_land_step_hlo_is_gather_free():
 
 
 def test_soil_step_fusion_budget():
-    """Fusion count == kernel launches per step; keep it bounded (the N145
-    step currently compiles to ~17 fusions on TPU; CPU fusion counts differ
-    but large regressions show up on both backends)."""
+    """Fusion count == kernel launches per step; keep it bounded (CPU
+    fusion counts differ from the GPU's, but large regressions show up on
+    both backends)."""
     hlo = _step_hlo(_soil_sim())
     n_fusions = hlo.count(" fusion(")
     assert n_fusions < 80, f"step fusion count regressed: {n_fusions}"

@@ -290,8 +290,7 @@ def test_scanned_rollout_gradients_finite_with_frozen_saturated_cells():
 def test_remat_policy_variants_same_gradient():
     """All backward-pass remat schedules (per-step, sqrt-segment, policy,
     lean carry) compute the same PARAMETER gradient as the plain rollout
-    (timesteppers/autodiff.py policy space; A/B'd for speed on chip in
-    experiments/ab_backward.py). The calibration parameter (mineral thermal
+    (timesteppers/autodiff.py policy space). The calibration parameter (mineral thermal
     conductivity) enters only the tendencies, never the closure, so the
     lean closure-rotation is gradient-neutral for it; state-gradients wrt
     prognostics legitimately differ between lean and plain by the

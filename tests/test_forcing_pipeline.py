@@ -63,13 +63,10 @@ def test_pipeline_single_compilation(rng):
 
 
 def test_run_fused_streamed_matches_full_series():
-    """Pipeline x fused-window composition (VERDICT r5 item 5): streaming
-    hourly forcing through `run_fused` (one executable, shifted-time-origin
-    windows) must match the plain XLA rollout holding the FULL series
-    device-resident. Chunks cross window boundaries and the series end
-    (flat extrapolation)."""
-    import jax
-
+    """Streaming hourly float32 forcing through `ChunkedForcingPipeline.run`
+    must match the lean-scan rollout holding the FULL series device-resident.
+    Chunks cross window boundaries and the series end (flat
+    extrapolation)."""
     cells, nz = 24, 6
     hours = np.arange(0.0, 40 * 3600.0, 3600.0)
     rng = np.random.default_rng(11)
@@ -98,8 +95,7 @@ def test_run_fused_streamed_matches_full_series():
                                   series={"surface_temperature": ts},
                                   window=8)
     sim_f = build((pipe,))
-    sim_f.fused_inner_steps = 4
-    pipe.run_fused(sim_f, steps=steps, dt=900.0)
+    pipe.run(sim_f, steps=steps, dt=900.0)
 
     np.testing.assert_allclose(
         np.asarray(sim_f.state.prognostic["internal_energy"]),
@@ -124,28 +120,26 @@ def test_run_fused_lazy_series_provider():
                                 spacing=tt.ExponentialSpacing(N=nz),
                                 nf=np.float32)
         model = tt.SoilModel(grid=grid)
-        sim = tt.initialize(
+        return tt.initialize(
             model, tt.ForwardEuler(dt=1800.0),
             initializers={"temperature": 0.5, "saturation_water_ice": 0.5},
             boundary_conditions=tt.PrescribedSurfaceTemperature(
                 "surface_temperature"),
             input_sources=(pipe,))
-        sim.fused_inner_steps = 2
-        return sim
 
     out = {}
     for key, series in (("lazy", {"surface_temperature": provider}),
                         ("array", {"surface_temperature": base})):
         pipe = ChunkedForcingPipeline(times=hours, series=series, window=6)
         sim = build(pipe)
-        pipe.run_fused(sim, steps=32, dt=1800.0)
+        pipe.run(sim, steps=32, dt=1800.0)
         out[key] = np.asarray(sim.state.prognostic["internal_energy"])
     np.testing.assert_array_equal(out["lazy"], out["array"])
 
 
 def test_run_fused_multi_variable_and_static_sources():
-    """run_fused with TWO streamed series variables plus a static source
-    (the coupled-forcing shape): matches the device-resident reference."""
+    """`run` with TWO streamed series variables plus a static source (the
+    coupled-forcing shape): matches the device-resident reference."""
     cells, nz = 16, 6
     hours = np.arange(0.0, 30 * 3600.0, 3600.0)
     rng = np.random.default_rng(23)
@@ -176,8 +170,7 @@ def test_run_fused_multi_variable_and_static_sources():
 
     pipe = ChunkedForcingPipeline(times=hours, series=series, window=8)
     sim_f = build((pipe,))
-    sim_f.fused_inner_steps = 4
-    pipe.run_fused(sim_f, steps=steps, dt=1800.0)
+    pipe.run(sim_f, steps=steps, dt=1800.0)
 
     np.testing.assert_allclose(
         np.asarray(sim_f.state.prognostic["internal_energy"]),
@@ -186,9 +179,8 @@ def test_run_fused_multi_variable_and_static_sources():
 
 
 def test_run_fused_coupled_land_model():
-    """Streamed forcing through the COUPLED LandModel's fused kernel
-    (xy_rank2 auto): the production composition of io/forcing_pipeline
-    with the BASELINE #4 model family."""
+    """Streamed forcing through the COUPLED LandModel: the production
+    composition of io/forcing_pipeline with the BASELINE #4 model family."""
     cells, nz = 24, 6
     grid = tt.ColumnGrid.of(cells=cells, spacing=tt.ExponentialSpacing(N=nz),
                             nf=np.float32)
@@ -226,8 +218,7 @@ def test_run_fused_coupled_land_model():
 
     pipe = ChunkedForcingPipeline(times=hours, series=series, window=8)
     sim_f = build((pipe, static))
-    sim_f.fused_inner_steps = 4  # block/xy_rank2 auto (coupled)
-    pipe.run_fused(sim_f, steps=steps, dt=1800.0)
+    pipe.run(sim_f, steps=steps, dt=1800.0)
 
     for name in ("internal_energy", "saturation_water_ice",
                  "carbon_vegetation"):

@@ -1,143 +1,18 @@
 """Golden regression tests.
 
-The reference ships no regression data (SURVEY §4 gap); these pin short
-deterministic trajectories of the two flagship configurations so future
-refactors are checked for *numerical* changes, not just invariants. Goldens
-are stored in ``tests/goldens/`` and regenerated by running this file as a
+The cases live in `terrarium_tpu.diagnostics.golden_cases` (shared with
+``chip_smoke.py``, which checks the same goldens on the GPU). Goldens are
+stored in ``tests/goldens/`` and regenerated by running this file as a
 script (``python tests/test_goldens.py``) after an intentional change.
 """
-import os
 import pathlib
 
 import numpy as np
 import pytest
 
-import terrarium_tpu as tt
+from terrarium_tpu.diagnostics.golden_cases import ATOL, CASES, RTOL, run_case
 
 GOLDEN_DIR = pathlib.Path(__file__).parent / "goldens"
-
-
-def _soil_heat_richards_sim():
-    grid = tt.ColumnGrid.of(cells=8, spacing=tt.ExponentialSpacing(N=20),
-                            nf=np.float64)
-    props = tt.ConstantSoilHydraulics(
-        swrc=tt.VanGenuchten(alpha=2.0, n=2.0),
-        unsat_hydraulic_cond=tt.UnsatKVanGenuchten())
-    soil = tt.SoilEnergyWaterCarbon(
-        hydrology=tt.SoilHydrology(vertical_flow=tt.RichardsEq(),
-                                   hydraulic_properties=props))
-    model = tt.SoilModel(grid=grid, soil=soil)
-    return tt.initialize(
-        model, tt.ForwardEuler(),
-        initializers={
-            "temperature": lambda x, z: 2.0 * np.sin(2 * np.pi * x) - 0.05 * z,
-            "saturation_water_ice": lambda x, z: np.minimum(1.0, 0.6 - 0.05 * z),
-        },
-        boundary_conditions=tt.PrescribedSurfaceTemperature(
-            lambda t: -5.0 + 0.0 * t))
-
-
-def _land_model_sim():
-    grid = tt.ColumnGrid.of(cells=4, spacing=tt.ExponentialSpacing(N=15),
-                            nf=np.float64)
-    model = tt.LandModel(grid=grid)
-    return tt.initialize(
-        model, tt.ForwardEuler(),
-        initializers={"temperature": 5.0, "saturation_water_ice": 0.8},
-        input_sources=(tt.FieldInputSource(fields={
-            "surface_shortwave_down": 400.0, "air_temperature": 12.0,
-            "rainfall": 1.0e-7}),))
-
-
-def _land_snow_sim():
-    grid = tt.ColumnGrid.of(cells=4, spacing=tt.ExponentialSpacing(N=12),
-                            nf=np.float64)
-    soil = tt.SoilEnergyWaterCarbon(hydrology=tt.SoilHydrology(
-        vertical_flow=tt.RichardsEq()))
-    model = tt.LandModel(grid=grid, soil=soil, snow=tt.Snowpack())
-    return tt.initialize(
-        model, tt.ForwardEuler(),
-        initializers={"temperature": 1.0, "saturation_water_ice": 0.6,
-                      "snow_water_equivalent": 0.02},
-        input_sources=(tt.FieldInputSource(fields={
-            "air_temperature": 4.0, "snowfall": 5.0e-8,
-            "surface_shortwave_down": 250.0}),))
-
-
-def _heun_forced_sim():
-    """Heun + time-varying forcing inside the lean rollout (VERDICT r2
-    weak item 7: previously untouched by goldens)."""
-    grid = tt.ColumnGrid.of(cells=4, spacing=tt.ExponentialSpacing(N=15),
-                            nf=np.float64)
-    props = tt.ConstantSoilHydraulics(
-        swrc=tt.VanGenuchten(alpha=2.0, n=2.0),
-        unsat_hydraulic_cond=tt.UnsatKVanGenuchten())
-    soil = tt.SoilEnergyWaterCarbon(
-        hydrology=tt.SoilHydrology(vertical_flow=tt.RichardsEq(),
-                                   hydraulic_properties=props))
-    model = tt.SoilModel(grid=grid, soil=soil)
-    times = np.arange(0.0, 86401.0, 7200.0)
-    series = (np.linspace(-4.0, 8.0, 4)[None, :]
-              + 6.0 * np.sin(2 * np.pi * times / 86400.0)[:, None])
-    return tt.initialize(
-        model, tt.Heun(),
-        initializers={"temperature": 1.0,
-                      "saturation_water_ice": lambda x, z: np.minimum(
-                          1.0, 0.7 - 0.04 * z)},
-        boundary_conditions=tt.PrescribedSurfaceTemperature("air_temperature"),
-        input_sources=(tt.TimeSeriesInputSource(
-            times=times, series={"air_temperature": series}),))
-
-
-def _implicit_sim():
-    """ImplicitEuler (PCR solves, Picard-1) on coupled heat+Richards with a
-    freeze front — the stepper tests/goldens previously did not pin
-    (VERDICT r3 housekeeping: an implicit.py regression was only caught by
-    the looser stiff-accuracy bounds)."""
-    grid = tt.ColumnGrid.of(cells=6, spacing=tt.ExponentialSpacing(N=16),
-                            nf=np.float64)
-    props = tt.ConstantSoilHydraulics(
-        swrc=tt.VanGenuchten(alpha=2.0, n=2.0),
-        unsat_hydraulic_cond=tt.UnsatKVanGenuchten())
-    soil = tt.SoilEnergyWaterCarbon(
-        hydrology=tt.SoilHydrology(vertical_flow=tt.RichardsEq(),
-                                   hydraulic_properties=props))
-    model = tt.SoilModel(grid=grid, soil=soil)
-    return tt.initialize(
-        model, tt.ImplicitEuler(dt=3600.0),
-        initializers={
-            "temperature": lambda x, z: 3.0 * np.cos(2 * np.pi * x) + 0.1 * z,
-            "saturation_water_ice": lambda x, z: np.minimum(1.0, 0.65 - 0.04 * z),
-        },
-        boundary_conditions=tt.PrescribedSurfaceTemperature(
-            lambda t: -8.0 + 0.0 * t))
-
-
-CASES = {
-    "soil_heat_richards": (_soil_heat_richards_sim, 120, 300.0,
-                           ("internal_energy", "saturation_water_ice",
-                            "temperature", "pressure_head")),
-    "heun_forced": (_heun_forced_sim, 96, 300.0,
-                    ("internal_energy", "saturation_water_ice",
-                     "temperature", "pressure_head")),
-    "land_model": (_land_model_sim, 48, 300.0,
-                   ("internal_energy", "saturation_water_ice",
-                    "skin_temperature", "ground_heat_flux")),
-    "land_snow": (_land_snow_sim, 48, 300.0,
-                  ("internal_energy", "saturation_water_ice",
-                   "snow_water_equivalent", "snow_cover_fraction",
-                   "surface_shortwave_up")),
-    "implicit_freeze": (_implicit_sim, 48, 3600.0,
-                        ("internal_energy", "saturation_water_ice",
-                         "temperature", "liquid_water_fraction")),
-}
-
-
-def _run(name):
-    build, steps, dt, fields = CASES[name]
-    sim = build()
-    sim.run(steps=steps, dt=dt)
-    return {f: np.asarray(sim.state[f]) for f in fields}
 
 
 def _golden_path(name):
@@ -145,14 +20,14 @@ def _golden_path(name):
 
 
 def _check(name):
-    result = _run(name)
+    result = run_case(name)
     path = _golden_path(name)
     assert path.exists(), (
         f"golden {path} missing — generate with `python tests/test_goldens.py`")
     golden = np.load(path)
     for f, arr in result.items():
         np.testing.assert_allclose(
-            arr, golden[f], rtol=1e-12, atol=1e-12,
+            arr, golden[f], rtol=RTOL, atol=ATOL,
             err_msg=f"{name}:{f} diverged from golden trajectory")
 
 
@@ -173,9 +48,10 @@ def test_heun_forced_lean_scan_equals_stepwise():
     x lean-rollout equivalence. (Not bitwise: the scanned body and the
     stepwise executable are separate XLA compilations with different
     FMA-contraction choices; measured max rel diff ~6e-16.)"""
-    sim = _heun_forced_sim()
+    build = CASES["heun_forced"][0]
+    sim = build()
     sim.run(steps=12, dt=300.0)
-    ref = _heun_forced_sim()
+    ref = build()
     for _ in range(12):
         ref.timestep(300.0, finalize=False)
     ref.compute_auxiliary()
@@ -205,5 +81,5 @@ if __name__ == "__main__":
     jax.config.update("jax_enable_x64", True)
     GOLDEN_DIR.mkdir(exist_ok=True)
     for name in CASES:
-        np.savez(_golden_path(name), **_run(name))
+        np.savez(_golden_path(name), **run_case(name))
         print("wrote", _golden_path(name))

@@ -205,31 +205,9 @@ def test_stacked_solve_matches_sequential():
                                rtol=1e-12, atol=1e-14)
 
 
-def test_tridiag_thomas_full_unroll_matches_scan(rng):
-    """The fully-unrolled Thomas form (`THOMAS_UNROLL="full"`, the
-    Mosaic-lowerable variant used inside the fused kernel) solves the same
-    systems as the scan form to tight tolerance."""
-    from terrarium_tpu.ops import tridiag
-
-    nz, cells = 30, 8
-    a = rng.uniform(0.1, 1.0, (nz, cells))
-    c = rng.uniform(0.1, 1.0, (nz, cells))
-    b = 2.0 + a + c
-    d = rng.normal(size=(nz, cells))
-    args = tuple(jnp.asarray(v) for v in (a, b, c, d))
-    x_scan = np.asarray(tridiag_solve(*args))
-    try:
-        tridiag.THOMAS_UNROLL = "full"
-        x_full = np.asarray(tridiag_solve(*args))
-    finally:
-        tridiag.THOMAS_UNROLL = 2
-    np.testing.assert_allclose(x_full, x_scan, rtol=1e-12)
-
-
 def test_tridiag_pair_rows_matches_independent(rng):
-    """`tridiag_solve_pair_rows` (r5: heat+Richards rows packed into
-    (2, cells) sweep ops — 2x sublane utilization in the fused kernel)
-    solves both systems identically to independent solves."""
+    """`tridiag_solve_pair_rows` (heat+Richards rows packed into (2, cells)
+    sweep ops) solves both systems identically to independent solves."""
     from terrarium_tpu.ops.tridiag import tridiag_solve_pair_rows
 
     nz, cells = 30, 8

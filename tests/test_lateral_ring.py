@@ -163,7 +163,8 @@ def test_lateral_ring_sharded_bit_identical():
 def test_lateral_ring_sharded_hlo_collectives():
     """The shard_map lateral step's compiled HLO contains the halo
     `collective-permute`s and NO all-gather — the one-permute-per-side
-    contract that keeps halo traffic on ICI (SURVEY §2.11)."""
+    contract that keeps halo traffic to the shard edges (SURVEY
+    §2.11)."""
     import jax
     from jax.sharding import Mesh, PartitionSpec as P
 

@@ -1,7 +1,7 @@
 """Multi-device sharding tests on the 8-device virtual CPU mesh.
 
 The reference has no distributed execution (SURVEY §2.11); these validate the
-TPU-native strategy: cells sharded over the mesh, z local, step collective-
+strategy: cells sharded over the mesh, z local, step collective-
 free, results identical to single-device execution.
 """
 import jax
@@ -218,118 +218,58 @@ def test_sharded_time_varying_forcing():
     assert T.std() > 1.0
 
 
-def test_fused_rollout_under_mesh_bit_identical():
-    """VERDICT r3 item 5: the fused lean Pallas rollout under the device
-    mesh. `make_sharded_fused_rollout` runs the kernel inside shard_map
-    (a bare pallas_call under sharded operands would gather); results must
-    be bit-identical to the unsharded fused rollout, outputs stay
-    cells-sharded, and the compiled sharded HLO contains no collectives."""
-    from terrarium_tpu.ops.fused_step import make_fused_lean_rollout
-    from terrarium_tpu.parallel.sharding import make_sharded_fused_rollout
+@pytest.mark.parametrize("series", ["scalar_T", "per_cell_T_cells"])
+def test_sharded_simulation_run_with_time_series(series):
+    """`Simulation.run` (the lean-scan rollout) on a cells-sharded state with
+    sharded forcing: a (T,) series replicates — its only axis is time, even
+    when T == cells — and a (T, cells) series shards on cells. The result
+    matches the unsharded run, stays cells-sharded, and the compiled rollout
+    holds no collective."""
+    from terrarium_tpu.timesteppers.integrator import _split_sources
 
-    cells, nz, n = 128, 8, 16
-    grid = tt.ColumnGrid.of(cells=cells, spacing=tt.ExponentialSpacing(N=nz),
-                            nf=np.float32)
-    model = tt.SoilModel(grid=grid)
-    times = np.arange(0.0, 16 * 3600.0, 3600.0)
-    per_cell = np.linspace(-2.0, 12.0, cells)[None, :]
-    series = (per_cell + 6.0 * np.sin(2 * np.pi * times / 86400.0)[:, None]
-              ).astype(np.float32)
-    src = tt.TimeSeriesInputSource(times=times,
-                                   series={"surface_temperature": series})
-    sim = tt.initialize(
-        model, tt.ForwardEuler(dt=900.0),
-        initializers={"temperature": 1.0, "saturation_water_ice": 0.5},
-        boundary_conditions=tt.PrescribedSurfaceTemperature(
-            "surface_temperature"),
-        input_sources=(src,))
+    cells, steps = 16, 16
+    hours = np.arange(0.0, 16 * 3600.0, 3600.0)  # T == cells
+    wave = 5.0 + 4.0 * np.sin(2 * np.pi * hours / 86400.0)
+    values = (wave if series == "scalar_T"
+              else wave[:, None] + np.linspace(-3.0, 3.0, cells)[None, :])
 
-    fused_single = make_fused_lean_rollout(
-        sim.model, sim.timestepper, sim.ctx, sim.input_sources,
-        dt=900.0, inner_steps=4, block_cells=16, interpret=True)
-    out_single = jax.jit(lambda s: fused_single(s, n))(sim.state)
+    def build():
+        grid = tt.ColumnGrid.of(cells=cells,
+                                spacing=tt.ExponentialSpacing(N=8),
+                                nf=np.float64)
+        return tt.initialize(
+            tt.SoilModel(grid=grid), tt.ForwardEuler(dt=900.0),
+            initializers={"temperature": 1.0, "saturation_water_ice": 0.5},
+            boundary_conditions=tt.PrescribedSurfaceTemperature(
+                "surface_temperature"),
+            input_sources=(tt.TimeSeriesInputSource(
+                times=hours, series={"surface_temperature": values}),))
+
+    ref = build()
+    ref.run(steps=steps, dt=900.0)
 
     mesh = cell_mesh()
-    state_sharded = shard_state(sim.state, mesh)
-    sources_sharded = shard_sources(sim.input_sources, cells, mesh)
-    fused_sharded = make_sharded_fused_rollout(
-        sim.model, sim.timestepper, sim.ctx, sim.input_sources, mesh=mesh,
-        dt=900.0, inner_steps=4, block_cells=16, interpret=True)
-    roll = jax.jit(lambda s, t: fused_sharded(s, n, t))
-    out_sharded = roll(state_sharded, sources_sharded)
+    sim = build()
+    sim.state = shard_state(sim.state, mesh)
+    sim.input_sources = shard_sources(sim.input_sources, cells, mesh)
+    leaf = sim.input_sources[0].series["surface_temperature"]
+    want = (jax.sharding.PartitionSpec() if series == "scalar_T"
+            else jax.sharding.PartitionSpec(None, "cells"))
+    assert leaf.sharding.spec == want, leaf.sharding
+    sim.run(steps=steps, dt=900.0)
 
-    for name in sorted(out_single.prognostic):
-        np.testing.assert_array_equal(
-            np.asarray(out_single.prognostic[name]),
-            np.asarray(out_sharded.prognostic[name]), err_msg=name)
-    sh = out_sharded.prognostic["internal_energy"].sharding
-    expected = jax.sharding.NamedSharding(
-        mesh, jax.sharding.PartitionSpec(None, "cells"))
-    assert sh.is_equivalent_to(expected, ndim=2), sh
-
-    hlo = roll.lower(state_sharded, sources_sharded).compile().as_text()
+    for name in sorted(ref.state.prognostic):
+        a = np.asarray(sim.state.prognostic[name])
+        b = np.asarray(ref.state.prognostic[name])
+        np.testing.assert_allclose(a, b, rtol=0.0,
+                                   atol=1e-12 * np.abs(b).max(), err_msg=name)
+    sh = sim.state.prognostic["internal_energy"].sharding
+    assert sh.is_equivalent_to(jax.sharding.NamedSharding(
+        mesh, jax.sharding.PartitionSpec(None, "cells")), ndim=2), sh
+    roll = sim._rollout_fn(steps)
+    hlo = roll._jit.lower(sim.state, 900.0,
+                          _split_sources(sim.input_sources)[0],
+                          n=steps).compile().as_text()
     for op in ("all-reduce", "all-gather", "all-to-all",
                "collective-permute", "reduce-scatter"):
-        assert op not in hlo, f"unexpected {op} in sharded fused HLO"
-
-
-def test_simulation_fused_path_on_mesh():
-    """`Simulation.mesh` routes the fused production path through shard_map;
-    `run()` works end-to-end on a sharded state and matches the XLA path."""
-    cells = 64
-    sim = _flagship(cells)
-    ref = _flagship(cells)
-    ref.run(steps=8, dt=300.0)
-
-    mesh = cell_mesh()
-    sim.state = shard_state(sim.state, mesh)
-    sim.mesh = mesh
-    sim.fused_inner_steps, sim.fused_block_cells = 4, 8
-    sim.run(steps=8, dt=300.0)
-    np.testing.assert_allclose(
-        np.asarray(sim.state.prognostic["internal_energy"]),
-        np.asarray(ref.state.prognostic["internal_energy"]),
-        rtol=1e-12, atol=0)
-
-
-def test_sharded_scalar_time_series_replicates_time_axis():
-    """A (T,) scalar forcing series has NO cell axis: shard_sources must
-    replicate it (sharding its trailing axis would shard TIME), and the
-    sharded fused rollout must localize only (T, cells) series. Round-4
-    review fix."""
-    from terrarium_tpu.parallel.sharding import make_sharded_fused_rollout
-    from terrarium_tpu.ops.fused_step import make_fused_lean_rollout
-
-    cells = 64
-    grid = tt.ColumnGrid.of(cells=cells, spacing=tt.ExponentialSpacing(N=8),
-                            nf=np.float32)
-    model = tt.SoilModel(grid=grid)
-    hours = np.arange(0.0, 16 * 3600.0, 3600.0)
-    ts = (5.0 + 4.0 * np.sin(2 * np.pi * hours / 86400.0)).astype(np.float32)
-    src = tt.TimeSeriesInputSource(times=hours,
-                                   series={"surface_temperature": ts})
-    sim = tt.initialize(
-        model, tt.ForwardEuler(dt=900.0),
-        initializers={"temperature": 1.0, "saturation_water_ice": 0.5},
-        boundary_conditions=tt.PrescribedSurfaceTemperature(
-            "surface_temperature"),
-        input_sources=(src,))
-    mesh = cell_mesh()
-    sources_sharded = shard_sources(sim.input_sources, cells, mesh)
-    leaf = sources_sharded[0].series["surface_temperature"]
-    assert leaf.sharding.spec == jax.sharding.PartitionSpec(), leaf.sharding
-
-    fused1 = make_fused_lean_rollout(sim.model, sim.timestepper, sim.ctx,
-                                     sim.input_sources, dt=900.0,
-                                     inner_steps=4, block_cells=8,
-                                     interpret=True)
-    out1 = jax.jit(lambda s: fused1(s, 16))(sim.state)
-    fusedN = make_sharded_fused_rollout(sim.model, sim.timestepper, sim.ctx,
-                                        sim.input_sources, mesh=mesh,
-                                        dt=900.0, inner_steps=4,
-                                        block_cells=8, interpret=True)
-    outN = jax.jit(lambda s, t: fusedN(s, 16, t))(
-        shard_state(sim.state, mesh), sources_sharded)
-    np.testing.assert_array_equal(
-        np.asarray(out1.prognostic["internal_energy"]),
-        np.asarray(outN.prognostic["internal_energy"]))
+        assert op not in hlo, f"unexpected {op} in the sharded rollout"

@@ -1,12 +1,13 @@
-"""Regression locks on the 1-simulated-year artifact (r4 item 2, r5 item 4).
+"""Regression locks on the 1-simulated-year protocol record.
 
-The year itself runs on the chip (experiments/run_year.py); CI locks the
-committed artifact: finiteness and budget-closure claims, physical end-state
-ranges, and the decimated end-state goldens' consistency with the recorded
-metadata — for the soil year AND (r5) the coupled LandModel year on the
-fused path, plus the exact-budget closure claims (sampling-independent
-per-step accumulation; the deficit_pool corrected year must close water).
-Skips cleanly until the artifact exists.
+The year itself runs on the GPU (`experiments/run_year.py`), which writes
+the physics record ``tests/goldens/year_protocol.json`` (protocol, end-state
+ranges, checksums, exact budgets — no timings) and the decimated end-state
+goldens. CI locks the committed record: finiteness and budget-closure
+claims, physical end-state ranges, and the goldens' consistency with the
+recorded metadata — for the soil year AND the coupled LandModel year, plus
+the exact-budget closure claims (sampling-independent per-step
+accumulation; the deficit_pool corrected year must close water).
 """
 import json
 import pathlib
@@ -14,19 +15,18 @@ import pathlib
 import numpy as np
 import pytest
 
-ROOT = pathlib.Path(__file__).parent.parent
-YEAR = ROOT / "YEAR_r05.json"
-YEAR_R4 = ROOT / "YEAR_r04.json"
-GOLDEN = ROOT / "tests" / "goldens" / "year_n145_endstate.npz"
-GOLDEN_COUPLED = ROOT / "tests" / "goldens" / "year_coupled_endstate.npz"
+GOLDENS = pathlib.Path(__file__).parent / "goldens"
+YEAR = GOLDENS / "year_protocol.json"
+GOLDEN = GOLDENS / "year_n145_endstate.npz"
+GOLDEN_COUPLED = GOLDENS / "year_coupled_endstate.npz"
+TIMING_KEYS = ("wall_s", "sypd", "sypd_instrumented", "cells_steps_per_s_M",
+               "rollout_path")
 
 
 def _year():
-    return json.loads((YEAR if YEAR.exists() else YEAR_R4).read_text())
+    return json.loads(YEAR.read_text())
 
 
-@pytest.mark.skipif(not (YEAR.exists() or YEAR_R4.exists()),
-                    reason="year artifact not yet produced")
 def test_year_artifact_claims():
     data = _year()
     assert data["finite"] is True
@@ -39,7 +39,6 @@ def test_year_artifact_claims():
     assert data["coupled"]["finite"] is True
 
 
-@pytest.mark.skipif(not YEAR.exists(), reason="r5 artifact not yet produced")
 def test_year_exact_budget_claims():
     data = _year()
     eb = data["exact_budget"]
@@ -58,12 +57,18 @@ def test_year_exact_budget_claims():
     assert eb["deficit_pool"]["deficit_total_m"] >= 0.0
 
 
-@pytest.mark.skipif(not YEAR.exists(), reason="r5 artifact not yet produced")
 def test_year_coupled_fused_claims():
+    """The coupled-year claims; the record holds physics only (no timing
+    or rollout-path field)."""
     data = _year()
     c = data["coupled"]
     assert c["finite"] is True
-    assert "fused" in c["rollout_path"]
+
+    def keys(d):
+        return [k for k, v in d.items()] + [
+            kk for v in d.values() if isinstance(v, dict) for kk in keys(v)]
+
+    assert not set(keys(data)) & set(TIMING_KEYS)
     assert c["sat_range"][1] < 1.01  # one-step overshoot bound
     assert -90.0 < c["skin_range"][0] <= c["skin_range"][1] < 90.0
     # 30-day exact budget of the consistent() composition: ENERGY closes
